@@ -15,7 +15,10 @@ from virus_nerf_tpu_torch.ops.fused_adam import (
     adam_update_,
     adam_update_plain_,
 )
+from virus_nerf_tpu_torch.ops import hash_encoder
 from virus_nerf_tpu_torch.ops.segment_sum import (
+    group_segment_sum_t_sorted,
+    group_segment_sum_t_sorted_plain,
     segment_sum_sorted,
     segment_sum_sorted_plain,
 )
@@ -96,3 +99,79 @@ def test_fused_adam_kernel_matches_plain(cuda_device, n):
         # 1e-6 is the bench's gate for the TPU kernel (bench.py:276)
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
                                    rtol=0, atol=1e-6)
+
+
+def _rows_case(name, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+
+    def keys(G, K, lo, hi):
+        return torch.sort(torch.randint(lo, hi, (G, K), generator=gen,
+                                        device=dev), dim=1).values
+
+    if name == "uniform":
+        k, R = keys(2, 50000, 0, 20000), 20000
+    elif name == "skewed":  # one row holds most of the stream
+        k = keys(1, 100000, 0, 4096)
+        k[0, 1000:90000] = 17
+        k, R = torch.sort(k, dim=1).values, 4096
+    elif name == "padded_rows":  # trailing rows no key hits
+        k, R = keys(1, 7777, 0, 4096), 4920
+    elif name == "odd_groups":
+        k, R = keys(3, 1001, 0, 300), 300
+    else:  # the XOR path's hashed group
+        k, R = keys(10, 917504, 0, 524288), 524288
+    vals = torch.randn((k.shape[0], k.shape[1], 2), generator=gen, device=dev)
+    return vals, k.to(torch.int32).contiguous(), R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["uniform", "skewed", "padded_rows",
+                                  "odd_groups", "hashed_group"])
+def test_segment_sum_rows_kernel_matches_plain(cuda_device, name):
+    vals, keys, R = _rows_case(name, cuda_device)
+    before = group_segment_sum_t_sorted.launches
+    got = group_segment_sum_t_sorted(vals, keys, R)
+    want = group_segment_sum_t_sorted_plain(vals, keys, R)
+    exact = group_segment_sum_t_sorted_plain(vals.double(), keys, R)
+    torch.cuda.synchronize()
+    assert group_segment_sum_t_sorted.launches == before + 1
+    assert got.shape == want.shape
+    # float32 sums in another order (the plain index_add_ accumulates with
+    # atomics): within 4 * eps32 * sqrt(n) * sum|v| of the float64 sum
+    counts = torch.stack([torch.bincount(keys[g].long(), minlength=R)
+                          for g in range(keys.shape[0])]).double()
+    mag = group_segment_sum_t_sorted_plain(vals.abs().double(), keys, R)
+    tol = 4 * torch.finfo(torch.float32).eps * counts.sqrt()[:, None] * mag
+    assert bool(((got.double() - exact).abs() <= tol).all())
+    assert bool(((want.double() - exact).abs() <= tol).all())
+    assert bool((got[mag == 0] == 0).all())  # rows no key hits are 0
+    # deterministic: no atomics
+    assert torch.equal(got, group_segment_sum_t_sorted(vals, keys, R))
+
+
+@pytest.mark.cuda
+def test_segment_sum_rows_kernel_rejects_unsupported_width(cuda_device):
+    vals = torch.zeros((1, 8, 3), device=cuda_device)
+    keys = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        group_segment_sum_t_sorted(vals, keys, 4)
+
+
+@pytest.mark.cuda
+def test_xor_hash_encode_on_card_matches_cpu(cuda_device):
+    spec = hash_encoder.HashGridSpec.create(levels=16, feat_dim=2,
+                                            max_res=1024, max_params=2**14)
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.random((spec.total_rows, 2), np.float32))
+    xyz = torch.from_numpy(rng.uniform(-0.03, 1.03, (4096, 3)).astype(np.float32))
+    gout = torch.from_numpy(rng.standard_normal((4096, 32)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        t = table.to(dev).detach().requires_grad_(True)
+        out = hash_encoder.hash_encode_xor(t, xyz.to(dev), spec)
+        out.backward(gout.to(dev))
+        outs.append((out.detach().cpu(), t.grad.cpu()))
+    # the same rows; float32 combines and row sums in another order
+    np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=0, atol=1e-4)

@@ -77,7 +77,9 @@ def _models(seed=0):
     jm = JModel(scale=0.5, hash_variant="additive", **MODEL_KW)
     params = jm.init(jax.random.PRNGKey(seed))
     tm = NGPModel(scale=0.5, **MODEL_KW)
-    tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    tm.load_state_dict(
+        params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    )
     return jm, params, tm
 
 
@@ -180,7 +182,8 @@ def test_grid_sensor_model_and_cells_match_jax():
 
 
 def test_sample_batch_draws_valid_pixels():
-    ds, _, _ = make_synthetic_dataset(n_images=3, img_wh=(32, 24), n_gt_points=100)
+    ds, _, _ = make_synthetic_dataset(n_images=3, img_wh=(32, 24), n_gt_points=100,
+                                      device="cpu")
     g = torch.Generator().manual_seed(0)
     b = sample_batch(ds, g, 100, {"imgs": "same",
                                   "pixs": {"valid_uss": 0.4, "valid_tof": 0.3}})

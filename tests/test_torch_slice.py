@@ -6,7 +6,7 @@ JAX functions and the JAX key splits of ``Trainer._make_train_body`` /
 ``_make_occ_body`` (trainer.py:249, 373), runs the JAX bodies, and hands
 the same draws to the port's ``grid_update_on`` / ``train_step_on``.
 Small sizes throughout (8 x 4 hash levels of 2^12 rows, 32^3 grid, 128
-rays)."""
+rays); the XOR cases run the reference's 16 x 2 layout at 2^12 rows."""
 
 import inspect
 import os
@@ -40,10 +40,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA_KW = dict(n_images=4, img_wh=(32, 24), n_gt_points=2000)
 
 
-def small_config() -> Config:
+def small_config(hash_variant: str = "additive") -> Config:
     cfg = Config()
     m = cfg.model
+    m.hash_variant = hash_variant
     m.hash_levels, m.hash_features_per_level = 8, 4
+    if hash_variant == "xor":
+        m.hash_levels, m.hash_features_per_level = 16, 2
     m.hash_log2_T, m.hash_max_res, m.grid_size = 12, 64, 32
     t = cfg.training
     t.batch_size, t.max_samples_per_ray = 128, 32
@@ -72,10 +75,10 @@ def _port_batch(b) -> Batch:
 class Pair:
     """The JAX trainer and the port's trainer on the same config/data."""
 
-    def __init__(self):
-        self.cfg = small_config()
+    def __init__(self, hash_variant: str = "additive"):
+        self.cfg = small_config(hash_variant)
         self.jds, jscene, _ = j_make_dataset(**DATA_KW)
-        self.pds, pscene, _ = make_synthetic_dataset(**DATA_KW)
+        self.pds, pscene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
         self.jt = JTrainer(self.cfg, self.jds, scene=jscene)
         self.pt = Trainer(self.cfg, self.pds, scene=pscene, device="cpu")
         self.train_body = jax.jit(self.jt._make_train_body())
@@ -86,10 +89,10 @@ class Pair:
         """JAX state and a port state holding the same numbers."""
         js = self.jt.init_state(seed)
         ps = self.pt.init_state(seed)
-        ps.model.load_state_dict(params_from_jax(_np(js.params)))
-        count, mu, nu = adam_state_from_jax(_np(js.opt_state))
+        ps.model.load_state_dict(params_from_jax(_np(js.params), device="cpu"))
+        count, mu, nu = adam_state_from_jax(_np(js.opt_state), device="cpu")
         ps.optimizer.load_moments(ps.model.named_parameters(), count, mu, nu)
-        ps.grid = grid_from_jax(_np(js.grid))
+        ps.grid = grid_from_jax(_np(js.grid), device="cpu")
         return js, ps
 
     def occ_draws(self, js):
@@ -117,6 +120,11 @@ def pair():
     return Pair()
 
 
+@pytest.fixture(scope="module")
+def xor_pair():
+    return Pair("xor")
+
+
 def test_same_dataset(pair):
     for name in ("poses", "directions", "rgbs", "uss_mask_idx", "tof_mask_idx"):
         np.testing.assert_array_equal(
@@ -127,6 +135,14 @@ def test_same_dataset(pair):
 
 
 def test_grid_update_then_train_step_match_jax(pair):
+    check_grid_update_then_train_step(pair)
+
+
+def test_xor_grid_update_then_train_step_match_jax(xor_pair):
+    check_grid_update_then_train_step(xor_pair)
+
+
+def check_grid_update_then_train_step(pair):
     js, ps = pair.start()
     # ---- grid update at step 0, before the step (trainer.py:484-510)
     ray_b, nerf_b, noise = pair.occ_draws(js)
@@ -142,7 +158,7 @@ def test_grid_update_then_train_step_match_jax(pair):
     assert ps.grid.update_step == int(jg.update_step) == 1
     assert 0 < jg.occ_bool.mean() < 1  # the update moved cells both ways
     # the step below marches both sides on the SAME boolean grid
-    ps.grid = grid_from_jax(jg)
+    ps.grid = grid_from_jax(jg, device="cpu")
 
     # ---- one train step
     batch, k_render, noise = pair.train_draws(js)
@@ -178,7 +194,7 @@ def test_grid_update_then_train_step_match_jax(pair):
     # gradients: the table's differ by the JAX CPU backward's prefix-sum
     # cancellation (eps32 * |prefix| over a level's samples); the MLP
     # weights' by float32 op order
-    gj = params_from_jax(_np(grads_j))
+    gj = params_from_jax(_np(grads_j), device="cpu")
     for name, p in ps.model.named_parameters():
         scale = float(np.abs(gj[name].numpy()).max())
         assert scale > 0, name
@@ -188,14 +204,21 @@ def test_grid_update_then_train_step_match_jax(pair):
     # updated params: step 1 of Adam with eps = 1e-15 moves every entry of
     # nonzero gradient by lr * sign(g); an entry whose gradient is ~0 may
     # take the other sign on the other side (2 * lr apart).  Allow that
-    # for a tiny share of entries, hold the rest to float32.
-    pj = params_from_jax(_np(js.params))
+    # for a tiny share of entries whose gradient is rounding noise (within
+    # the gradient tolerance above), hold the rest to float32.  The XOR
+    # table has more such entries: the JAX CPU backward differences prefix
+    # sums over each level's 8N corner samples, which leaves ~1e-8 where
+    # the exact gradient is 0 (0.28 % of its entries on this setup).
+    pj = params_from_jax(_np(js.params), device="cpu")
     lr = t.lr
+    max_share = 5e-3 if pair.cfg.model.hash_variant == "xor" else 2e-3
     for name, p in ps.model.named_parameters():
         diff = np.abs(p.detach().numpy() - pj[name].numpy())
         flipped = diff > 1e-6
-        assert flipped.mean() < 2e-3, (name, flipped.mean())
+        assert flipped.mean() < max_share, (name, flipped.mean())
         assert np.all(diff[flipped] <= 2 * lr * (1 + 1e-5)), name
+        noise = 2e-4 * float(np.abs(gj[name].numpy()).max())
+        assert np.all(np.abs(gj[name].numpy()[flipped]) <= noise), name
         if name == "pos_table":
             moved = np.abs(pj[name].numpy() - params0.pos_table) > 0
             assert moved.mean() > 0.01  # the kernel path's leaf was updated
@@ -203,6 +226,14 @@ def test_grid_update_then_train_step_match_jax(pair):
 
 
 def test_eight_steps_loss_per_step(pair):
+    check_eight_steps_loss_per_step(pair)
+
+
+def test_xor_eight_steps_loss_per_step(xor_pair):
+    check_eight_steps_loss_per_step(xor_pair)
+
+
+def check_eight_steps_loss_per_step(pair):
     js, ps = pair.start(seed=1)
     interval = pair.cfg.occ_grid.update_interval
     losses_j, losses_p = [], []
@@ -226,27 +257,40 @@ def test_eight_steps_loss_per_step(pair):
 
 
 def test_port_runs_without_jax():
+    run_port_without_jax("additive")
+
+
+def test_xor_port_runs_without_jax():
+    run_port_without_jax("xor")
+
+
+def run_port_without_jax(hash_variant):
     # the port's own loop (its own draws) in a fresh interpreter: 8 steps,
-    # finite losses, and jax never imported
+    # finite losses, and neither jax nor any module of the JAX package
+    # imported
     code = "\n".join([
         "import sys",
         "import torch",
-        "from virus_nerf_tpu.configs.config import Config",
+        "from virus_nerf_tpu_torch.configs.config import Config",
         inspect.getsource(small_config),
         f"DATA_KW = {DATA_KW!r}",
+        f"HASH_VARIANT = {hash_variant!r}",
         """
 torch.set_num_threads(1)
 from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from virus_nerf_tpu_torch.training.trainer import Trainer
-cfg = small_config()
+cfg = small_config(HASH_VARIANT)
 cfg.training.max_steps = 8
-ds, scene, _ = make_synthetic_dataset(**DATA_KW)
+ds, scene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
 trainer = Trainer(cfg, ds, scene=scene, device="cpu")
 state = trainer.train()
 losses = trainer.logs["loss"]
 assert state.step == 8 and len(losses) == 8, (state.step, losses)
 assert all(l == l for l in losses), losses
 assert "jax" not in sys.modules, "the port imported jax"
+jax_pkg = [m for m in sys.modules
+           if m == "virus_nerf_tpu" or m.startswith("virus_nerf_tpu.")]
+assert not jax_pkg, f"the port imported the JAX package: {jax_pkg}"
 print("OK", losses[0], losses[-1])
 """,
     ])

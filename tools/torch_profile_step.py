@@ -1,9 +1,11 @@
 """Step time, device profile and kernel A/B of the PyTorch port on one GPU.
 
-    python tools/torch_profile_step.py [--trace PATH]
+    python tools/torch_profile_step.py [--hash-variant xor] [--trace PATH]
 
-At the bench configuration (``chip_smoke.bench_config``, bench.py:311-348),
-from a seeded random init, in one process and in this order:
+At the bench configuration (``chip_smoke.bench_config``, bench.py:311-348;
+with ``--hash-variant xor`` the reference's 16 x F=2 XOR hash of 2^19 rows
+in its place), from a seeded random init, in one process and in this
+order:
 
 1. 288 training steps (bench.py's warm-up: the grid settles);
 2. 200 timed steps, grid updates included, host clock after a
@@ -12,10 +14,11 @@ from a seeded random init, in one process and in this order:
 4. 8 steps under ``torch.profiler``: device time per step, top kernels
    (``--trace`` writes the Chrome trace);
 5. 32 steps synced at each phase boundary: ms/step per phase;
-6. in-train A/B of the two CUDA kernels against their plain versions,
+6. in-train A/B of the CUDA kernels against their plain versions,
    96 steps per arm in turns kernels/plain/plain/kernels, then
    8 profiled steps per arm.  The plain arm swaps the module globals the
-   step calls (``hash_encoder.segment_sum_sorted`` and
+   step calls (``hash_encoder.segment_sum_sorted``,
+   ``hash_encoder.group_segment_sum_t_sorted`` and
    ``fused_adam.adam_update_``) for their plain versions.
 
 Needs a CUDA device; prints the card's name and power limit first.
@@ -43,7 +46,10 @@ import virus_nerf_tpu_torch.ops.hash_encoder as hash_encoder  # noqa: E402
 from virus_nerf_tpu_torch.data.dataset import sample_batch  # noqa: E402
 from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset  # noqa: E402
 from virus_nerf_tpu_torch.models.renderer import render_rays  # noqa: E402
-from virus_nerf_tpu_torch.ops.segment_sum import segment_sum_sorted_plain  # noqa: E402
+from virus_nerf_tpu_torch.ops.segment_sum import (  # noqa: E402
+    group_segment_sum_t_sorted_plain,
+    segment_sum_sorted_plain,
+)
 from virus_nerf_tpu_torch.training.loss import compute_loss  # noqa: E402
 from virus_nerf_tpu_torch.training.trainer import Trainer  # noqa: E402
 
@@ -51,12 +57,15 @@ WARMUP, STEPS, AB_STEPS = 288, 200, 96
 
 
 def plain_kernels(on: bool):
-    """Context in which the step takes the plain versions of both kernels."""
+    """Context in which the step takes the plain versions of the kernels."""
     if not on:
         return contextlib.nullcontext()
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(
         hash_encoder, "segment_sum_sorted", segment_sum_sorted_plain))
+    stack.enter_context(mock.patch.object(
+        hash_encoder, "group_segment_sum_t_sorted",
+        group_segment_sum_t_sorted_plain))
     stack.enter_context(mock.patch.object(
         fused_adam, "adam_update_", fused_adam.adam_update_plain_))
     return stack
@@ -141,12 +150,14 @@ def key_skew(trainer, state):
     run_steps(trainer, state, 1)
     hook.remove()
     out = []
-    for name, vals, keys, R in chip_smoke.slice_segment_cases(
-            state.model, seen["xyz"], trainer.device):
+    cases = (chip_smoke.xor_segment_cases
+             if state.model.hash_variant == "xor"
+             else chip_smoke.slice_segment_cases)
+    for name, vals, keys, R in cases(state.model, seen["xyz"], trainer.device):
         for g in range(keys.shape[0]):
             cnt = torch.bincount(keys[g].long(), minlength=R)
             top = torch.sort(cnt, descending=True).values
-            out.append(f"{name}[{g}] (VF={vals.shape[1]}, K={keys.shape[1]}, "
+            out.append(f"{name}[{g}] (vals {tuple(vals.shape)}, K={keys.shape[1]}, "
                        f"n_rows={R}): longest segment {int(top[0])}, rows hit "
                        f"{int((cnt > 0).sum())}, top 1% rows hold "
                        f"{float(top[:max(1, R // 100)].sum()) / keys.shape[1]:.3f}")
@@ -157,6 +168,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trace", default=None,
                     help="write the profiled steps' Chrome trace here")
+    ap.add_argument("--hash-variant", default="additive",
+                    choices=["additive", "xor"],
+                    help="xor: the reference's 16 x F=2 XOR hash")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -171,6 +185,9 @@ def main():
 
     cfg = chip_smoke.bench_config()
     cfg.training.max_steps = WARMUP
+    if args.hash_variant == "xor":
+        cfg.model.hash_variant = "xor"
+        cfg.model.hash_levels, cfg.model.hash_features_per_level = 16, 2
     dataset, scene, _ = make_synthetic_dataset(
         n_images=16, img_wh=(160, 120), device=dev)
     trainer = Trainer(cfg, dataset, scene=scene, device=dev)

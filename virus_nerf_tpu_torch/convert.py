@@ -20,7 +20,7 @@ def _t(x, device, dtype=torch.float32):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def params_from_jax(params, device="cpu") -> Dict[str, torch.Tensor]:
+def params_from_jax(params, device="cuda") -> Dict[str, torch.Tensor]:
     """``NGPParams`` -> ``NGPModel`` state dict.  MLP weights go from
     JAX's (in, out) to ``nn.Linear``'s (out, in)."""
     out = {"pos_table": _t(params.pos_table, device)}
@@ -31,7 +31,7 @@ def params_from_jax(params, device="cpu") -> Dict[str, torch.Tensor]:
 
 
 def adam_state_from_jax(
-    opt_state, device="cpu"
+    opt_state, device="cuda"
 ) -> Tuple[int, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """``FusedAdamState`` -> (count, mu, nu) keyed like the model's
     parameters (see ``FusedAdam.load_moments``)."""
@@ -42,7 +42,7 @@ def adam_state_from_jax(
     )
 
 
-def grid_from_jax(grid, device="cpu") -> OccGridState:
+def grid_from_jax(grid, device="cuda") -> OccGridState:
     """``OccGridState`` -> the port's (occ_3d_grid, occ_bool, update_step);
     the Morton bitfield is dropped."""
     return OccGridState(

@@ -97,7 +97,7 @@ def make_synthetic_dataset(
     camera_aov_deg: Tuple[float, float] = (90.0, 65.0),
     tof_matrix: Tuple[int, int] = (8, 8),
     n_gt_points: int = 400_000,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[DeviceDataset, Scene, Dict]:
     """Build the synthetic dataset on ``device``.
 

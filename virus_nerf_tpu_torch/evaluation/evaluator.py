@@ -1,0 +1,418 @@
+"""End-to-end evaluation: colour PSNR/SSIM and the 2-D mapping NND metrics.
+
+Counterpart of ``virus_nerf_tpu/evaluation/evaluator.py`` (reference:
+training/trainer.py:167-224, 374-866): render 360-degree horizontal depth
+scans from the NeRF, build the matching ground-truth scan by ray-casting the
+GT slice map, project both to the 2-D plane, and compare them with
+nearest-neighbour distances in three directions per sensor:
+
+- ``nn``           prediction -> FoV-limited GT   (accuracy),
+- ``nn_inv``       FoV-limited GT -> prediction   (coverage inside FoV),
+- ``nn_inv_360``   full 360-degree GT -> prediction (total coverage).
+
+The NeRF renders run on the card in fixed-size chunks (the last one padded)
+with zero march noise under ``torch.no_grad()``; everything after the
+render is the JAX package's numpy code, on the host.  Where the JAX methods
+take the parameters (``params``), these take the model that holds them.
+
+Not ported yet: render and plot export (``save_dir``, ``plot``),
+``metrics.csv``, ``density_slice``, ``pack_lidar_scans`` and the NeRF
+point-cloud export.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from virus_nerf_tpu_torch.configs.config import Config
+from virus_nerf_tpu_torch.data.dataset import DeviceDataset
+from virus_nerf_tpu_torch.data.scene import Scene
+from virus_nerf_tpu_torch.evaluation import metrics as M
+from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays, limit_fov
+from virus_nerf_tpu_torch.models.ngp import NGPModel
+from virus_nerf_tpu_torch.models.renderer import render_rays
+
+
+def _sync_idxs(times: np.ndarray, sids: np.ndarray, img_idxs,
+               tolerance: float = 0.1) -> np.ndarray:
+    """Time-synchronous images across sensor stacks
+    (virus_nerf_tpu/data/dataset.py:173-199): for each query image, its own
+    index plus the closest-in-time image of every OTHER stack within
+    ``tolerance`` seconds (its own index when none is close enough).
+    Returns (N, n_stacks) int indices."""
+    img_idxs = np.atleast_1d(np.asarray(img_idxs, int))
+    stacks = np.unique(sids)
+    out = np.zeros((img_idxs.shape[0], stacks.shape[0]), int)
+    for i, q in enumerate(img_idxs):
+        for j, s in enumerate(stacks):
+            if sids[q] == s:
+                out[i, j] = q
+                continue
+            cand = np.where(sids == s)[0]
+            if cand.size == 0:
+                out[i, j] = q
+                continue
+            k = cand[np.argmin(np.abs(times[cand] - times[q]))]
+            out[i, j] = k if abs(times[k] - times[q]) < tolerance else q
+    return out
+
+
+class Evaluator:
+    """Host-side evaluation around chunked renders on ``device``."""
+
+    def __init__(
+        self,
+        cfg: Config,
+        dataset: DeviceDataset,
+        scene: Scene,
+        img_wh: Optional[Tuple[int, int]] = None,
+        device="cuda",
+    ):
+        self.cfg = cfg
+        self.scene = scene
+        self.img_wh = img_wh
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        # the evaluation reads the split on the host, once
+        self.ds = {
+            name: getattr(dataset, name).cpu().numpy()
+            for name in ("poses", "directions", "cam_idx", "rgbs", "times",
+                         "uss_mask_idx", "tof_mask_idx", "sensor_ids")
+        }
+        self.depths = {k: v.cpu().numpy() for k, v in dataset.depths.items()}
+        self.n_images = dataset.n_images
+        self.n_pixels = dataset.n_pixels
+
+    # ------------------------------------------------------------- rendering
+    def render_batched(
+        self, model: NGPModel, occ_bool, rays_o: np.ndarray, rays_d: np.ndarray
+    ) -> Dict[str, np.ndarray]:
+        """Render arbitrarily many rays in chunks of
+        ``evaluation.batch_size`` (reference: training/trainer_base.py:
+        183-224), with no march jitter."""
+        param_dev = next(model.parameters()).device
+        if param_dev != self.device:
+            raise ValueError(f"model on {param_dev}, evaluator on {self.device}")
+        cfg, ev = self.cfg, self.cfg.evaluation
+        budget = ev.sample_budget
+        if budget is not None and budget <= 0:
+            budget = None
+        B = ev.batch_size
+        occ = occ_bool.to(self.device)
+        noise = torch.zeros(B, device=self.device)
+        n = rays_o.shape[0]
+        outs = {"rgb": [], "depth": [], "opacity": []}
+        with torch.no_grad():
+            for i in range(0, n, B):
+                o = np.array(rays_o[i:i + B], np.float32)  # writable copies
+                d = np.array(rays_d[i:i + B], np.float32)
+                pad = B - o.shape[0]
+                if pad:
+                    o = np.concatenate([o, np.zeros((pad, 3), np.float32)])
+                    d = np.concatenate(
+                        [d, np.tile(np.array([[0, 0, 1]], np.float32), (pad, 1))]
+                    )
+                res = render_rays(
+                    model, occ, torch.from_numpy(o).to(self.device),
+                    torch.from_numpy(d).to(self.device), noise,
+                    exp_step_factor=cfg.exp_step_factor,
+                    max_samples=ev.max_samples_per_ray,
+                    n_candidates=cfg.training.march_candidates,
+                    march_resolution=cfg.training.march_resolution,
+                    sample_budget=budget,
+                )
+                for k in outs:
+                    outs[k].append(res[k][:B - pad])
+        return {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
+
+    # ----------------------------------------------------------- color eval
+    def evaluate_color(self, model: NGPModel, occ_bool,
+                       img_idxs: np.ndarray) -> Dict[str, float]:
+        """Full-image renders -> PSNR/SSIM (reference:
+        training/trainer.py:304-372)."""
+        if self.img_wh is None:
+            raise ValueError("Evaluator needs img_wh for color evaluation")
+        W, H = self.img_wh
+        ds = self.ds
+        rgbs, gts = [], []
+        for i in np.asarray(img_idxs, int):
+            dirs_cam = ds["directions"][int(ds["cam_idx"][i])]  # (H*W, 3)
+            pose = ds["poses"][i]  # (3, 4)
+            rays_d = dirs_cam @ pose[:3, :3].T
+            rays_o = np.broadcast_to(pose[:3, 3], rays_d.shape)
+            out = self.render_batched(model, occ_bool, rays_o, rays_d)
+            rgbs.append(out["rgb"].reshape(H, W, 3))
+            gts.append(ds["rgbs"][i].reshape(H, W, 3))
+        rgbs, gts = np.stack(rgbs), np.stack(gts)
+        return {"psnr": M.psnr(rgbs, gts), "ssim": M.ssim(rgbs, gts)}
+
+    # -------------------------------------------------------- robot pose/FoV
+    def get_robot_pose_2d(
+        self, img_idxs: np.ndarray
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        """Per-camera-stack 2-D robot pose in world coordinates
+        (reference: datasets/dataset_ethz.py:195-259 ``getRobotPose2D``):
+        the camera origin and the world XY angle of the central pixel's ray
+        of each stack's time-synchronous image.
+
+        Returns:
+            pos: {camera_name: (N, 2) world XY}, orientation: {name: (N,)}.
+        """
+        if self.img_wh is None:
+            raise ValueError("get_robot_pose_2d needs img_wh")
+        W, H = self.img_wh
+        center = (H // 2) * W + W // 2  # reference: 0.5*W*(H+1)
+        ds = self.ds
+        img_idxs = np.asarray(img_idxs, int)
+        sync = _sync_idxs(ds["times"], ds["sensor_ids"], img_idxs)
+        stacks = np.unique(ds["sensor_ids"])
+        cam_idx = ds["cam_idx"].astype(int)
+        pos: Dict[str, np.ndarray] = {}
+        orientation: Dict[str, np.ndarray] = {}
+        for j, s in enumerate(stacks):
+            ii = sync[:, j]
+            p = ds["poses"][ii]  # (N, 3, 4)
+            d_cam = ds["directions"][cam_idx[ii], center]  # (N, 3)
+            d_w = np.einsum("nij,nj->ni", p[:, :3, :3], d_cam)
+            o_w = self.scene.c2w(p[:, :3, 3])
+            name = f"CAM{int(s)}"
+            pos[name] = o_w[:, :2]
+            orientation[name] = np.arctan2(d_w[:, 1], d_w[:, 0])
+        return pos, orientation
+
+    def get_field_of_view(self, img_idxs: np.ndarray):
+        """Per-image angular FoV ranges of every sensor
+        (reference: datasets/dataset_ethz.py:261-307): camera orientation
+        ± half the sensor's horizontal angle of view; NeRF scans are 360°.
+
+        Returns:
+            fov: {sensor: {camera: (N, 2) [min, max] angles}},
+            pos: {camera: (N, 2)}, orientation: {camera: (N,)}.
+        """
+        pos, orientation = self.get_robot_pose_2d(img_idxs)
+        n = np.asarray(img_idxs).shape[0]
+        half = {
+            "USS": 0.5 * np.deg2rad(self.cfg.uss.angle_of_view[0]),
+            "ToF": 0.5 * np.deg2rad(self.cfg.tof.angle_of_view[0]),
+            "RGBD": 0.5 * np.deg2rad(self.cfg.rgbd.angle_of_view[0]),
+        }
+        fov = {
+            sensor: {
+                name: orientation[name][:, None] + np.array([-h, h])
+                for name in orientation
+            }
+            for sensor, h in half.items()
+        }
+        first = next(iter(orientation))
+        fov["NeRF"] = {first: np.tile([-np.pi, np.pi], (n, 1))}
+        # normalize angles to [-pi, pi] (reference quirk: single wrap)
+        for sensor in fov:
+            for cam in fov[sensor]:
+                a = fov[sensor][cam]
+                a[a > np.pi] -= 2 * np.pi
+                a[a < -np.pi] += 2 * np.pi
+        return fov, pos, orientation
+
+    # ----------------------------------------------------------- depth data
+    def _scan_origins(self, img_idxs: np.ndarray) -> np.ndarray:
+        """Per-image scan origin = camera position (cube coords)."""
+        return self.ds["poses"][img_idxs, :3, 3]
+
+    def _get_gt_data(self, img_idxs: np.ndarray):
+        """GT 360-degree scan by ray-casting the GT slice raster
+        (reference: training/trainer.py:534-571)."""
+        ev = self.cfg.evaluation
+        rays_o, rays_d = create_scan_rays(self._scan_origins(img_idxs),
+                                          ev.res_angular)
+        _, depths_c, _ = self.scene.get_slice_scan(
+            res=ev.res_map, rays_o=rays_o, rays_d=rays_d,
+            height_tolerance=ev.height_tolerance, rays_o_in_world_coord=False,
+        )
+        return (self.scene.c2w(rays_o), rays_d,
+                self.scene.c2w(depths_c, only_scale=True))
+
+    def _get_nerf_data(self, model: NGPModel, occ_bool, img_idxs: np.ndarray):
+        """NeRF 360-degree depth scan (reference: training/trainer.py:573-629)."""
+        ev = self.cfg.evaluation
+        rays_o, rays_d = create_scan_rays(self._scan_origins(img_idxs),
+                                          ev.res_angular)
+        out = self.render_batched(model, occ_bool, rays_o, rays_d)
+        return (self.scene.c2w(rays_o), rays_d,
+                self.scene.c2w(out["depth"], only_scale=True))
+
+    def _get_sensor_data(self, img_idxs: np.ndarray, sensor: str):
+        """Measured USS/ToF/RGBD depths within the height band, NaN-packed to
+        a common per-image width (reference: training/trainer.py:681-762)."""
+        ds = self.ds
+        ev = self.cfg.evaluation
+        if sensor == "USS":
+            pix = ds["uss_mask_idx"].astype(int)
+        elif sensor == "ToF":
+            pix = ds["tof_mask_idx"].astype(int)
+        else:
+            pix = np.arange(self.n_pixels)
+        N = img_idxs.shape[0]
+        k = pix.shape[0]
+
+        poses = ds["poses"][img_idxs]  # (N, 3, 4)
+        cams = ds["cam_idx"][img_idxs]
+        rays_d = np.einsum(
+            "nij,nkj->nki", poses[:, :3, :3], ds["directions"][cams][:, pix]
+        )  # (N, k, 3)
+        rays_o = np.broadcast_to(poses[:, None, :3, 3], rays_d.shape).copy()
+        depths_c = self.depths[sensor][img_idxs][:, pix]  # (N, k)
+
+        rays_o_w = self.scene.c2w(rays_o.reshape(-1, 3)).reshape(N, k, 3)
+        depths_w = self.scene.c2w(depths_c, only_scale=True)
+
+        # height-band filter (training/trainer.py:731-735)
+        dz = depths_w * rays_d[:, :, 2]
+        mask = (
+            (dz >= -ev.height_tolerance)
+            & (dz <= ev.height_tolerance)
+            & ~np.isnan(depths_w)
+        )  # (N, k)
+
+        K = int(max(mask.sum(axis=1).max(), 1))
+        rays_o_p = np.full((N, K, 3), np.nan)
+        rays_d_p = np.full((N, K, 3), np.nan)
+        depths_p = np.full((N, K), np.nan)
+        for i in range(N):
+            m = mask[i]
+            c = int(m.sum())
+            rays_o_p[i, :c] = rays_o_w[i, m]
+            rays_d_p[i, :c] = rays_d[i, m]
+            depths_p[i, :c] = depths_w[i, m]
+        return (
+            rays_o_p.reshape(-1, 3),
+            rays_d_p.reshape(-1, 3),
+            depths_p.reshape(-1),
+        )
+
+    # ----------------------------------------------------------- depth eval
+    def evaluate_depth(
+        self,
+        model: NGPModel,
+        occ_bool,
+        img_idxs: np.ndarray,
+        sensors: Iterable[str] = ("GT", "NeRF"),
+    ):
+        """Depth evaluation over sensors (reference: training/trainer.py:374-490).
+
+        Args:
+            img_idxs: (N,) test image indices.
+            sensors: subset of {GT, NeRF, USS, ToF, RGBD}; GT is mandatory and
+                evaluated first.  With ``img_wh`` the GT each sensor is held
+                against is limited to its per-image field of view
+                (``get_field_of_view``, training/trainer.py:401-434).
+        Returns:
+            (metrics_dict, data_dict) keyed by sensor.
+        """
+        img_idxs = np.asarray(img_idxs, int)
+        N = img_idxs.shape[0]
+        ev = self.cfg.evaluation
+        zones = {k: tuple(v) for k, v in ev.zones.items()}
+
+        fov = robot_pos = None
+        if self.img_wh is not None:
+            fov, robot_pos, _ = self.get_field_of_view(img_idxs)
+
+        metrics_dict: Dict[str, dict] = {}
+        data_dict: Dict[str, dict] = {}
+        sensors = ["GT"] + [s for s in sensors if s != "GT"]
+
+        for sensor in sensors:
+            if sensor == "GT":
+                rays_o, rays_d, depths = self._get_gt_data(img_idxs)
+            elif sensor == "NeRF":
+                rays_o, rays_d, depths = self._get_nerf_data(
+                    model, occ_bool, img_idxs
+                )
+            else:
+                rays_o, rays_d, depths = self._get_sensor_data(img_idxs, sensor)
+
+            pos, pos_o, dists = self.scene.depth2pos(rays_o, rays_d, depths)
+
+            if sensor == "GT":
+                data_dict["GT"] = {
+                    "pos": pos, "pos_o": pos_o, "depths": dists,
+                    "rays_o": rays_o,
+                }
+                continue
+
+            if fov is not None and sensor in fov:
+                pos_gt, pos_o_gt = limit_fov(
+                    data_dict["GT"]["pos"], data_dict["GT"]["pos_o"],
+                    fov[sensor], N, robot_pos,
+                )
+            else:
+                pos_gt = data_dict["GT"]["pos"]
+                pos_o_gt = data_dict["GT"]["pos_o"]
+
+            res = {}
+            for suffix, (p, p_ref, ref_is_gt) in {
+                "": (pos, pos_gt, True),
+                "_inv": (pos_gt, pos, False),
+                "_inv_360": (data_dict["GT"]["pos"], pos, False),
+            }.items():
+                nn_dists, mean, median, inlier, too_close = M.nn_metrics(
+                    p, p_ref, dists, data_dict["GT"]["depths"], N,
+                    ref_pos_is_gt=ref_is_gt, zones=zones,
+                    inlier_threshold=ev.inlier_threshold,
+                )
+                res[f"nn_dists{suffix}"] = nn_dists
+                res[f"nn_mean{suffix}"] = mean
+                res[f"nn_median{suffix}"] = median
+                res[f"nn_inlier{suffix}"] = inlier
+                res[f"nn_outlier_too_close{suffix}"] = too_close
+
+            data_dict[sensor] = {
+                "pos": pos, "pos_o": pos_o, "depths": dists,
+                "pos_gt": pos_gt, "pos_o_gt": pos_o_gt,
+            }
+            metrics_dict[sensor] = res
+
+        return metrics_dict, data_dict
+
+    # -------------------------------------------------------------- summary
+    def evaluate(
+        self,
+        model: NGPModel,
+        occ_bool,
+        color_img_idxs: Optional[np.ndarray] = None,
+        depth_img_idxs: Optional[np.ndarray] = None,
+        sensors: Optional[Iterable[str]] = None,
+    ) -> Dict[str, dict]:
+        """Colour and depth evaluation (reference: training/trainer.py:
+        167-224); every sensor's metrics carry the colour PSNR/SSIM."""
+        ev = self.cfg.evaluation
+        n = self.n_images
+        if color_img_idxs is None:
+            k = ev.num_color_pts if isinstance(ev.num_color_pts, int) else n
+            color_img_idxs = np.linspace(0, n - 1, min(k, n)).astype(int)
+        if depth_img_idxs is None:
+            k = ev.num_depth_pts if isinstance(ev.num_depth_pts, int) else n
+            depth_img_idxs = np.linspace(0, n - 1, min(k, n)).astype(int)
+        if sensors is None:
+            sensors = [
+                s for s in ev.sensors
+                if s in ("GT", "NeRF") or s in self.depths
+            ]
+
+        if len(np.atleast_1d(color_img_idxs)) == 0:
+            # num_color_pts=0 skips colour, as the reference's PSO protocol
+            # does (reference: run_optimization.py:32)
+            color = {"psnr": float("nan"), "ssim": float("nan")}
+        else:
+            color = self.evaluate_color(model, occ_bool, color_img_idxs)
+        metrics_dict, _ = self.evaluate_depth(
+            model, occ_bool, depth_img_idxs, sensors
+        )
+        for key in metrics_dict:
+            metrics_dict[key]["psnr"] = color["psnr"]
+            metrics_dict[key]["ssim"] = color["ssim"]
+        return metrics_dict

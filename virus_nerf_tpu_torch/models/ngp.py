@@ -9,8 +9,10 @@ modules/networks.py:32-191) as an ``nn.Module``, float32 compute only:
   sigmoid output, input SH(dir) ++ xyz features;
 - degree-4 SH on (d+1)/2 with d normalized.
 
-The additive hash encoder only; the triplane and XOR encoders and the
-``mixed``/``bfloat16`` compute modes are not ported yet.
+The hash encoder in both variants (``hash_variant``: "additive", the JAX
+package's production hash, or "xor", the reference's own,
+models/ngp.py:154-155); the triplane encoder and the ``mixed``/``bfloat16``
+compute modes are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from virus_nerf_tpu_torch.ops.hash_encoder import (
     HashGridSpec,
     _SpecTensors,
     hash_encode,
+    hash_encode_xor,
 )
+
+_ENCODERS = {"additive": hash_encode, "xor": hash_encode_xor}
 from virus_nerf_tpu_torch.ops.sh import sh_encode
 
 
@@ -52,12 +57,18 @@ class NGPModel(nn.Module):
         rgb_net_width: int = 64,
         rgb_net_depth: int = 2,
         grid_size: int = 128,
+        hash_variant: str = "additive",
         generator: torch.Generator = None,
         device=None,
     ):
         """``generator`` draws the initial weights and lives on ``device``
         (the default generator when None)."""
         super().__init__()
+        if hash_variant not in _ENCODERS:
+            raise ValueError(f"unknown hash_variant {hash_variant!r} (have "
+                             f"{sorted(_ENCODERS)})")
+        self.hash_variant = hash_variant
+        self._encode = _ENCODERS[hash_variant]
         self.scale = float(scale)
         self.grid_size = int(grid_size)
         self.xyz_net_out_dim = xyz_net_out_dim
@@ -99,7 +110,7 @@ class NGPModel(nn.Module):
         """Density at positions x (..., 3) in [-scale, scale]^3."""
         shape = x.shape[:-1]
         x_unit = (x.reshape(-1, 3) + self.scale) / (2.0 * self.scale)
-        emb = hash_encode(
+        emb = self._encode(
             self.pos_table, x_unit, self.hash_spec,
             self._spec_consts(x.device),
         )

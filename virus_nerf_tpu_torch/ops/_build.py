@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 All sources under ``virus_nerf_tpu_torch/csrc/*.cu`` compile, at first use,
-into ONE shared library with a plain C interface::
+into ONE shared library with a plain C interface: one ``nvcc`` per source,
+all started together, then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/libvnerf_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o build/<hash>/<name>.o csrc/<name>.cu   # each
+    nvcc -shared -o build/libvnerf_kernels_<hash>.so build/<hash>/*.o
 
 The library lands in ``build/`` at the repository root (resolved from this
 file, not from the working directory) under a name that carries a hash of
@@ -34,7 +36,7 @@ BUILD_DIR = _PKG_DIR.parent / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -46,6 +48,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # vals, keys, out, G, VF, K, n_rows, stream
     "vn_segment_sum_sorted": (_P, _P, _P, _I, _I, _L, _I, _P),
+    # vals, keys, out, head_key, tail_key, head_sum, tail_sum, G, F, K,
+    # n_rows, stream
+    "vn_segment_sum_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
+    "vn_segment_sum_rows_chunk": (),
     # p, g, mu, nu, n, lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2,
     # eps, stream
     "vn_fused_adam": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P),
@@ -73,30 +79,47 @@ def _source_hash(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> None:
+    """Wait for every started nvcc; raise with the output of the first
+    that failed."""
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                          f"{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build_library() -> Path:
     """Compile the kernels (if the hashed library is not built yet) and
     return the library path."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    out = BUILD_DIR / f"libvnerf_kernels_{_source_hash(sources)}.so"
+    digest = _source_hash(sources)
+    out = BUILD_DIR / f"libvnerf_kernels_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs, procs = [], []
+        for src in sources:
+            obj = os.path.join(objdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+            objs.append(obj)
+        _run(procs)
+        tmp = os.path.join(objdir, out.name)
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        ))])
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 

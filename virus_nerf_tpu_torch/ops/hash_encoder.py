@@ -1,4 +1,5 @@
-"""Multiresolution hash-grid encoder, additive hash, 2-D table.
+"""Multiresolution hash-grid encoder on a 2-D table: the additive hash and
+the reference's XOR hash.
 
 Counterpart of ``hash_encode`` (virus_nerf_tpu/ops/hash_encoder.py:538).
 The table layout (``HashGridSpec``) and the additive hash
@@ -24,6 +25,16 @@ Reference behaviour kept on purpose: the JAX forward gathers bf16-rounded
 corner features for every level whose size passes ``_packable_size``
 (>= 2^17 rows; hash_encoder.py:388-394, 482-496, 529-530), on every backend.
 The port rounds at the same point so the numbers match.
+
+The XOR variant (``hash_encode_xor``, hash_encoder.py:895-1014) indexes
+each corner as the reference does: ``x + y*res + z*res^2`` on dense levels,
+``(x ^ y*P2 ^ z*P3) mod size`` in uint32 on hashed ones.  Its corners have
+no fixed offsets, so the forward gathers the 8 corner rows in float32 (no
+bf16 rounding) and the backward segment-sums the (8N, F) corner stream of
+each level in row-major form (``group_segment_sum_t_sorted``, the CUDA
+kernel ``csrc/segment_sum_rows.cu`` on the card): one call for the merged
+run of single-size dense levels, one per group of same-size levels, so two
+launches per backward at the reference's 16 x 2 layout.
 """
 
 from __future__ import annotations
@@ -34,12 +45,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from virus_nerf_tpu_torch.ops.segment_sum import segment_sum_sorted
+from virus_nerf_tpu_torch.ops.segment_sum import (
+    group_segment_sum_t_sorted,
+    segment_sum_sorted,
+)
 
 # the reference's hashing primes (modules/hash_encoder.py:43-51)
 _PRIME_Y = 2654435761
 _PRIME_Z = 805459861
 _PACK_MIN_ROWS = 1 << 17  # hash_encoder.py:409
+_MASK32 = 0xFFFFFFFF  # uint32 wrap-around of the XOR hash, in int64
 
 
 def _align_to(x: int, y: int) -> int:
@@ -185,6 +200,26 @@ class _SpecTensors:
         rounded = torch.zeros(spec.levels, dtype=torch.bool, device=device)
         rounded[bf16_rounded_levels(spec)] = True
         self.bf16_levels = rounded
+        self.resolutions = t(spec.resolutions, torch.long)[:, None]
+        self.dense = t(
+            [lvl < spec.begin_fast_hash_level for lvl in range(spec.levels)],
+            torch.bool,
+        )[:, None]
+
+
+def _grid_positions(c: _SpecTensors, xyz):
+    """Per-level lattice cell (L, 3, N) int64 and fraction (L, 3, N)."""
+    xyzT = xyz.t().float()  # (3, N)
+    # pos = xyz * scale + 0.5 in float32, rounded once as a fused
+    # multiply-add: the rounding XLA's CPU compiler gives the JAX function
+    # under jit
+    half = torch.tensor(0.5, dtype=torch.float32, device=xyz.device)
+    pos = torch.addcmul(half, xyzT[None], c.scales)  # (L, 3, N)
+    pos_grid = torch.floor(pos)
+    frac = pos - pos_grid
+    # float -> uint32 saturates at 0 in XLA; a negative position (noisy
+    # grid-update samples just outside the cube) floors to corner 0
+    return pos_grid.clamp(min=0.0).long(), frac
 
 
 def hash_base_rows(spec: HashGridSpec, xyz, consts: _SpecTensors = None):
@@ -198,17 +233,7 @@ def hash_base_rows(spec: HashGridSpec, xyz, consts: _SpecTensors = None):
         weights: (L, 8, N) float32 (corner bit d = +1 along dim d).
     """
     c = consts if consts is not None else _SpecTensors(spec, xyz.device)
-    xyzT = xyz.t().float()  # (3, N)
-    # pos = xyz * scale + 0.5 in float32, rounded once as a fused
-    # multiply-add: the rounding XLA's CPU compiler gives the JAX function
-    # under jit
-    half = torch.tensor(0.5, dtype=torch.float32, device=xyz.device)
-    pos = torch.addcmul(half, xyzT[None], c.scales)  # (L, 3, N)
-    pos_grid = torch.floor(pos)
-    frac = pos - pos_grid
-    # float -> uint32 saturates at 0 in XLA; a negative position (noisy
-    # grid-update samples just outside the cube) floors to corner 0
-    pg = pos_grid.clamp(min=0.0).long()
+    pg, frac = _grid_positions(c, xyz)
     # additive hash; the strides are reduced mod size and hashed sizes are
     # powers of two, so int64 reproduces the uint32 wrap-around exactly
     base = (pg[:, 0] + pg[:, 1] * c.stride_y + pg[:, 2] * c.stride_z) % c.sizes
@@ -338,3 +363,133 @@ def hash_encode(table, xyz, spec: HashGridSpec, consts: _SpecTensors = None):
     if consts is None:
         consts = _SpecTensors(spec, xyz.device)
     return _HashEncode.apply(table, xyz, spec, consts)
+
+
+# --------------------------------------------------------------- XOR hash
+def xor_corner_rows(spec: HashGridSpec, xyz, consts: _SpecTensors = None):
+    """Per-corner absolute rows and trilinear weights under the reference
+    hash (hash_encoder.py:907-951).
+
+    Args:
+        xyz: (N, 3) positions normalized to [0, 1].
+    Returns:
+        rows: (L, 8, N) int32 absolute rows into the table.
+        weights: (L, 8, N) float32 (corner bit d selects the +1 step
+            along d).
+    """
+    c = consts if consts is not None else _SpecTensors(spec, xyz.device)
+    pg, frac = _grid_positions(c, xyz)
+    rows, weights = [], []
+    for corner in range(8):
+        sel = [(corner >> d) & 1 for d in range(3)]
+        cx, cy, cz = (pg[:, d] + sel[d] for d in range(3))  # (L, N)
+        # uint32 products and sums of the JAX function, in int64 masked to
+        # 32 bits
+        under = (cx + cy * c.resolutions
+                 + cz * c.resolutions * c.resolutions) & _MASK32
+        fast = (cx ^ ((cy * _PRIME_Y) & _MASK32)
+                ^ ((cz * _PRIME_Z) & _MASK32))
+        idx = torch.where(c.dense, under, fast) % c.sizes
+        rows.append((c.offsets + idx).to(torch.int32))
+        w = torch.ones_like(frac[:, 0])
+        for d in range(3):
+            w = w * (frac[:, d] if sel[d] else 1.0 - frac[:, d])
+        weights.append(w)
+    return torch.stack(rows, dim=1), torch.stack(weights, dim=1)
+
+
+def _xor_gather_combine(table, rows, w, spec: HashGridSpec):
+    """Per level: gather the 8 corner rows (float32) and combine them
+    (hash_encoder.py:962-971).  Returns (N, L * F)."""
+    n = rows.shape[-1]
+    outs = []
+    for lvl in range(spec.levels):
+        feats = table[rows[lvl].reshape(-1).long()].reshape(8, n, spec.feat_dim)
+        outs.append(torch.einsum("cnf,cn->nf", feats, w[lvl]))
+    return torch.cat(outs, dim=1)
+
+
+def xor_table_grad_streams(spec: HashGridSpec, rows, w, g):
+    """The segment sums of the XOR table gradient, in table-row order
+    (hash_encoder.py:984-1011).
+
+    Yields ``(sv, sk, n_rows)``: the (G, K, F) values and (G, K) int32
+    sorted keys of one ``group_segment_sum_t_sorted`` call.  Its (G, F,
+    n_rows) output, transposed to (G, n_rows, F), is the gradient of the
+    next G * n_rows table rows.
+    """
+    F = spec.feat_dim
+    L, _, n = rows.shape
+    # d out / d T[rows[l, c, n], f] = w[l, c, n] * g[n, l, f], (L, 8N, F)
+    gv = (
+        w[:, :, :, None] * g.reshape(n, L, F).float().transpose(0, 1)[:, None]
+    ).reshape(L, 8 * n, F)
+    offsets = torch.tensor(spec.offsets, dtype=torch.long, device=rows.device)
+    local = (rows.long() - offsets[:, None, None]).reshape(L, 8 * n)
+    # one sort of every level's keys; a stable sort keeps equal keys in
+    # stream order, so the sums are deterministic
+    sk_all, perm = torch.sort(local, dim=1, stable=True)
+    sv_all = torch.take_along_dim(gv, perm[:, :, None], dim=1)
+    sk_all = sk_all.to(torch.int32)
+
+    merge = []  # consecutive single-size levels, summed in one call
+
+    def merged():
+        # each level's keys are sorted and its table block follows the
+        # previous one's, so keys shifted by the block offsets are sorted
+        # over the concatenated blocks
+        base = spec.offsets[merge[0]]
+        keys = torch.cat([sk_all[lvl] + (spec.offsets[lvl] - base)
+                          for lvl in merge])
+        vals = torch.cat([sv_all[lvl] for lvl in merge])
+        n_rows = sum(spec.sizes[lvl] for lvl in merge)
+        return vals[None].contiguous(), keys[None].contiguous(), n_rows
+
+    for size, _, _, lvls in same_size_level_groups(spec):
+        if len(lvls) == 1:
+            merge.append(lvls[0])
+            continue
+        if merge:
+            yield merged()
+            merge = []
+        sl = slice(lvls[0], lvls[-1] + 1)
+        yield sv_all[sl].contiguous(), sk_all[sl].contiguous(), size
+    if merge:
+        yield merged()
+
+
+def _xor_table_grad(spec: HashGridSpec, rows, w, g):
+    blocks = []
+    for sv, sk, n_rows in xor_table_grad_streams(spec, rows, w, g):
+        out = group_segment_sum_t_sorted(sv, sk, n_rows)  # (G, F, n_rows)
+        blocks.append(out.transpose(1, 2).reshape(-1, spec.feat_dim))
+    return torch.cat(blocks, dim=0)  # (total_rows, F)
+
+
+class _HashEncodeXor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, xyz, spec, consts):
+        rows, w = xor_corner_rows(spec, xyz, consts)
+        ctx.spec = spec
+        ctx.save_for_backward(rows, w)
+        return _xor_gather_combine(table, rows, w, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, w = ctx.saved_tensors
+        return _xor_table_grad(ctx.spec, rows, w, g), None, None, None
+
+
+def hash_encode_xor(table, xyz, spec: HashGridSpec,
+                    consts: _SpecTensors = None):
+    """Encode positions through the hash grid under the reference's XOR
+    hash (hash_encoder.py:954-959); arguments and result as
+    :func:`hash_encode`."""
+    if table.dim() != 2 or tuple(table.shape) != (spec.total_rows, spec.feat_dim):
+        raise ValueError(
+            f"hash_encode_xor: want a ({spec.total_rows}, {spec.feat_dim}) "
+            f"table, got {tuple(table.shape)}"
+        )
+    if consts is None:
+        consts = _SpecTensors(spec, xyz.device)
+    return _HashEncodeXor.apply(table, xyz, spec, consts)

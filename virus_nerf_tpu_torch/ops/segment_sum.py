@@ -1,11 +1,18 @@
-"""Dense segment sum over key-sorted, transposed streams.
+"""Dense segment sums over key-sorted streams.
 
-Counterpart of ``group_segment_sum_ts_sorted``
-(virus_nerf_tpu/ops/segment_sum_pallas.py:607), whose TPU kernel is
-``_ts_kernel`` (:231).  The CUDA kernel that replaces it is
-``csrc/segment_sum.cu`` (design, bound and the two deliberate differences
-from the TPU kernel are in its header); ``segment_sum_sorted_plain`` is the
-plain PyTorch version of the same function.
+Two layouts of the value stream, each with its CUDA kernel (design, bound
+and the deliberate differences from the TPU kernel are in each header) and
+its plain PyTorch version, one ``index_add_``:
+
+- transposed (G, VF, K): ``segment_sum_sorted``, counterpart of
+  ``group_segment_sum_ts_sorted`` (virus_nerf_tpu/ops/segment_sum_pallas.py
+  :607), TPU kernel ``_ts_kernel`` (:231), CUDA ``csrc/segment_sum.cu``;
+  the additive hash encoder's backward;
+- row-major (G, K, F): ``group_segment_sum_t_sorted``, counterpart of the
+  function of that name (:725), TPU kernel ``_t_kernel`` (:101), CUDA
+  ``csrc/segment_sum_rows.cu``; with ``group_segment_sum_t`` (:748, sorts
+  first) and ``windowed_segment_sum`` (:769, one stream); the XOR hash
+  encoder's backward.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from virus_nerf_tpu_torch.ops import _build
 
 # VF values the kernel is instantiated for (csrc/segment_sum.cu)
 KERNEL_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
+# F values the row-major kernel is instantiated for (csrc/segment_sum_rows.cu)
+ROW_KERNEL_WIDTHS = (1, 2, 4, 8)
 
 
 def segment_sum_sorted_plain(vals, keys, n_rows: int):
@@ -102,3 +111,122 @@ def segment_sum_sorted(vals, keys, n_rows: int):
 
 
 segment_sum_sorted.launches = 0
+
+
+# ------------------------------------------------------- row-major streams
+def group_segment_sum_t_sorted_plain(sv, sk, n_rows: int):
+    """Plain PyTorch version: one ``index_add_`` over the flattened groups.
+
+    Args:
+        sv: (G, K, F) float32 values, each group sorted by its key.
+        sk: (G, K) int32 row ids in [0, n_rows), sorted per group.
+    Returns:
+        (G, F, n_rows) float32 sums.
+    """
+    G, K, F = sv.shape
+    idx = sk.long() + n_rows * torch.arange(
+        G, device=sk.device, dtype=torch.long
+    )[:, None]
+    out = sv.new_zeros(G * n_rows, F)
+    out.index_add_(0, idx.reshape(-1), sv.reshape(G * K, F))
+    return out.view(G, n_rows, F).transpose(1, 2)
+
+
+def _check_rows_args(sv, sk, n_rows: int):
+    name = "group_segment_sum_t_sorted"
+    if sv.dtype != torch.float32 or sk.dtype != torch.int32:
+        raise TypeError(
+            f"{name}: want float32 values and int32 keys, got {sv.dtype} and "
+            f"{sk.dtype}"
+        )
+    if sv.dim() != 3 or sk.dim() != 2 or tuple(sk.shape) != tuple(sv.shape[:2]):
+        raise ValueError(
+            f"{name}: want values (G, K, F) and keys (G, K), got "
+            f"{tuple(sv.shape)} and {tuple(sk.shape)}"
+        )
+    if sv.device != sk.device:
+        raise ValueError(f"{name}: values on {sv.device}, keys on {sk.device}")
+    if not 0 <= n_rows < 2**31 - 1:
+        raise ValueError(f"{name}: bad n_rows {n_rows}")
+
+
+def _group_segment_sum_t_sorted_cuda(sv, sk, n_rows: int):
+    G, K, F = sv.shape
+    if F not in ROW_KERNEL_WIDTHS:
+        raise ValueError(
+            f"group_segment_sum_t_sorted: F={F} has no kernel (have "
+            f"{ROW_KERNEL_WIDTHS})"
+        )
+    if not (sv.is_contiguous() and sk.is_contiguous()):
+        raise ValueError("group_segment_sum_t_sorted: values and keys must be "
+                         "contiguous")
+    lib = _build.library()
+    chunk = lib.vn_segment_sum_rows_chunk()
+    n_chunks = max(1, -(-K // chunk))
+    dev = sv.device
+    out = torch.empty((G, F, n_rows), dtype=torch.float32, device=dev)
+    # per chunk: the keys and sums of its first and last run
+    bkeys = torch.empty((2, G, n_chunks), dtype=torch.int32, device=dev)
+    bsums = torch.empty((2, G, n_chunks, F), dtype=torch.float32, device=dev)
+    err = lib.vn_segment_sum_rows(
+        sv.data_ptr(), sk.data_ptr(), out.data_ptr(), bkeys[0].data_ptr(),
+        bkeys[1].data_ptr(), bsums[0].data_ptr(), bsums[1].data_ptr(),
+        G, F, K, n_rows, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "vn_segment_sum_rows")
+    group_segment_sum_t_sorted.launches += 1
+    return out
+
+
+def group_segment_sum_t_sorted(sv, sk, n_rows: int):
+    """``out[g, f, r] = sum_{i: sk[g, i] == r} sv[g, i, f]``.
+
+    A CUDA tensor launches ``csrc/segment_sum_rows.cu`` (or raises); a CPU
+    tensor takes :func:`group_segment_sum_t_sorted_plain`.  ``.launches``
+    counts kernel launches.
+
+    Args:
+        sv: (G, K, F) float32 values, each group sorted by its key.
+        sk: (G, K) int32 sorted row ids in [0, n_rows).
+    Returns:
+        (G, F, n_rows) float32 sums, the table axis last as in JAX.
+    """
+    _check_rows_args(sv, sk, n_rows)
+    if sv.is_cuda:
+        return _group_segment_sum_t_sorted_cuda(sv, sk, n_rows)
+    if sv.device.type == "cpu":
+        return group_segment_sum_t_sorted_plain(sv, sk, n_rows)
+    raise ValueError(f"group_segment_sum_t_sorted: unsupported device {sv.device}")
+
+
+group_segment_sum_t_sorted.launches = 0
+
+
+def group_segment_sum_t(vals, keys, n_rows: int):
+    """Dense per-row sums of a group of unsorted streams, transposed.
+
+    Sorts each group's keys (a stable sort: equal keys keep their order, so
+    the sums are deterministic), permutes the values into key order and
+    calls :func:`group_segment_sum_t_sorted`.
+
+    Args:
+        vals: (G, K, F) float32 values.
+        keys: (G, K) int32 row ids in [0, n_rows).
+    Returns:
+        (G, F, n_rows) float32 sums.
+    """
+    sk, perm = torch.sort(keys, dim=1, stable=True)
+    sv = torch.take_along_dim(vals, perm[:, :, None], dim=1)
+    return group_segment_sum_t_sorted(sv.contiguous(), sk.contiguous(), n_rows)
+
+
+def windowed_segment_sum(sv, sk, n_rows: int):
+    """Dense per-row sums of one key-sorted stream.
+
+    Args:
+        sv: (K, F) float32 values, sorted by key.
+        sk: (K,) int32 sorted row ids in [0, n_rows).
+    Returns:
+        (n_rows, F) float32 sums.
+    """
+    return group_segment_sum_t_sorted(sv[None], sk[None], n_rows)[0].t()

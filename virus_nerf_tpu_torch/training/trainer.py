@@ -11,9 +11,9 @@ the order of the JAX package's chunk body (trainer.py:484-510).
 Per-step metrics stay on the device and are fetched once per chunk of
 ``evaluation.eval_every_n_steps`` steps, not once per step.
 
-Ported: the occupancy ("occ") grid, the additive hash encoder, float32
-compute, constant-dt marching, the "all"/"same" image and "random"/
-"valid_uss"/"valid_tof" pixel strategies.  Not yet: checkpoints,
+Ported: the occupancy ("occ") grid, the additive and XOR hash encoders,
+float32 compute, constant-dt marching, the "all"/"same" image and
+"random"/"valid_uss"/"valid_tof" pixel strategies.  Not yet: checkpoints,
 debug_mode, intermediate evaluation, the NGP grid, real-time simulation,
 the distortion loss and data parallelism.
 """
@@ -27,7 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
-from virus_nerf_tpu.configs.config import Config
+from virus_nerf_tpu_torch.configs.config import Config
 from virus_nerf_tpu_torch.data.dataset import Batch, DeviceDataset, sample_batch
 from virus_nerf_tpu_torch.data.scene import Scene
 from virus_nerf_tpu_torch.grids.occupancy_grid import (
@@ -75,7 +75,7 @@ def _check_supported(cfg: Config) -> None:
     unsupported = {
         "model.grid_type": (cfg.model.grid_type, "occ"),
         "model.encoder_type": (cfg.model.encoder_type, "hash"),
-        "model.hash_variant": (cfg.model.hash_variant, "additive"),
+        "model.hash_variant": (cfg.model.hash_variant, ("additive", "xor")),
         "model.dtype": (cfg.model.dtype, "float32"),
         "exp_step_factor": (cfg.exp_step_factor, 0.0),
         "training.distortion_loss_w": (cfg.training.distortion_loss_w, 0.0),
@@ -85,7 +85,7 @@ def _check_supported(cfg: Config) -> None:
         ),
     }
     for name, (have, want) in unsupported.items():
-        if have != want:
+        if have not in (want if isinstance(want, tuple) else (want,)):
             raise NotImplementedError(
                 f"virus_nerf_tpu_torch Trainer: {name}={have!r} is not "
                 f"ported (only {want!r})"
@@ -119,6 +119,7 @@ class Trainer:
             xyz_net_width=m.xyz_net_width, xyz_net_depth=m.xyz_net_depth,
             xyz_net_out_dim=m.xyz_net_out_dim, rgb_net_width=m.rgb_net_width,
             rgb_net_depth=m.rgb_net_depth, grid_size=m.grid_size,
+            hash_variant=m.hash_variant,
         )
         # metric -> cube conversions (reference: training/loss.py:29,
         # modules/occupancy_grid.py:55-58)
