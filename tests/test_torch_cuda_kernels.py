@@ -15,10 +15,13 @@ from virus_nerf_tpu_torch.ops.fused_adam import (
     adam_update_,
     adam_update_plain_,
 )
-from virus_nerf_tpu_torch.ops import hash_encoder
+from virus_nerf_tpu_torch.ops import hash_encoder, widen
 from virus_nerf_tpu_torch.ops.segment_sum import (
+    factor_products,
     group_segment_sum_t_sorted,
     group_segment_sum_t_sorted_plain,
+    group_segment_sum_tsf_sorted,
+    group_segment_sum_tsf_sorted_plain,
     segment_sum_sorted,
     segment_sum_sorted_plain,
 )
@@ -175,3 +178,116 @@ def test_xor_hash_encode_on_card_matches_cpu(cuda_device):
     # the same rows; float32 combines and row sums in another order
     np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=0, atol=1e-6)
     np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["uniform", "skewed", "padded_rows",
+                                  "odd_groups", "hashed_group"])
+def test_segment_sum_factors_kernel_matches_plain(cuda_device, name, dtype):
+    _, keys, R = _rows_case(name, cuda_device)
+    G, K = keys.shape
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(13)
+    wgt = torch.cat([torch.rand((G, 8, K), generator=gen, device=cuda_device),
+                     torch.randn((G, 2, K), generator=gen, device=cuda_device)],
+                    dim=1).to(dtype)
+    before = group_segment_sum_tsf_sorted.launches
+    got = group_segment_sum_tsf_sorted(wgt, keys, R, 2)
+    want = group_segment_sum_tsf_sorted_plain(wgt, keys, R, 2)
+    V = factor_products(wgt, 2)  # the products as the factor dtype rounds them
+    exact = segment_sum_sorted_plain(V.double(), keys, R)
+    torch.cuda.synchronize()
+    assert group_segment_sum_tsf_sorted.launches == before + 1
+    assert got.shape == want.shape == (G, 16, R)
+    # float32 sums of the same products in another order: within
+    # 4 * eps32 * sqrt(n) * sum|v| of the float64 sum of those products
+    counts = torch.stack([torch.bincount(keys[g].long(), minlength=R)
+                          for g in range(G)]).double()
+    mag = segment_sum_sorted_plain(V.abs().double(), keys, R)
+    tol = 4 * torch.finfo(torch.float32).eps * counts.sqrt()[:, None] * mag
+    assert bool(((got.double() - exact).abs() <= tol).all())
+    assert bool(((want.double() - exact).abs() <= tol).all())
+    assert bool((got[mag == 0] == 0).all())  # rows no key hits are 0
+    assert torch.equal(got, group_segment_sum_tsf_sorted(wgt, keys, R, 2))
+
+
+@pytest.mark.cuda
+def test_segment_sum_factors_kernel_rejects_unsupported_features(cuda_device):
+    wgt = torch.zeros((1, 11, 8), device=cuda_device)
+    keys = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        group_segment_sum_tsf_sorted(wgt, keys, 4, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_widen_slabs_kernel_is_bit_exact(cuda_device, F, dtype):
+    # a group of 10 levels of 2^16 rows at hashed-level corner offsets
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(14)
+    size, G, row0 = 1 << 16, 10, 4920
+    table = (torch.randn((row0 + G * size + 77, F), generator=gen,
+                         device=cuda_device) * 100).to(dtype)
+    offs = [0, 1, 40503, 40504, 12437, 12438, 52940, 52941]
+    before = widen.widen_slabs_group.launches
+    got = widen.widen_slabs_group(table, row0, size, G, offs)
+    want = widen.widen_slabs_group_plain(table, row0, size, G, offs)
+    torch.cuda.synchronize()
+    assert widen.widen_slabs_group.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (G, size, 8, F)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_fused_adam_kernel_on_bf16_parameters(cuda_device):
+    n = 11420064  # the 16 x 2 table
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(15)
+    p = torch.randn(n, generator=gen, device=cuda_device).to(torch.bfloat16)
+    g = torch.randn(n, generator=gen, device=cuda_device)
+    mu = torch.randn(n, generator=gen, device=cuda_device) * 0.1
+    nu = torch.rand(n, generator=gen, device=cuda_device) * 0.01
+    args = adam_scalars(1e-2, 0.9, 0.999, 5) + (0.9, 0.999, 1e-15)
+    a = [x.clone() for x in (p, mu, nu)]
+    b = [x.clone() for x in (p, mu, nu)]
+    before = adam_update_.launches
+    adam_update_(a[0], g, a[1], a[2], *args)
+    adam_update_plain_(b[0], g, b[1], b[2], *args)
+    torch.cuda.synchronize()
+    assert adam_update_.launches == before + 1
+    assert a[0].dtype == torch.bfloat16
+    # the moments as for float32; p rounds a float32 sum that may be an ulp
+    # apart to bf16, so the two may be neighbouring bf16 values, no further
+    for x, y in zip(a[1:], b[1:]):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=0,
+                                   atol=1e-6)
+
+    def ordered(x):  # bf16 bit patterns in the order of the values
+        i = x.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    assert int((ordered(a[0]) - ordered(b[0])).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slabs_factors_hash_encode_on_card_matches_cpu(cuda_device, dtype):
+    spec = hash_encoder.HashGridSpec.create(levels=16, feat_dim=2,
+                                            max_res=1024, max_params=2**17)
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.random((spec.total_rows, 2), np.float32))
+    xyz = torch.from_numpy(rng.uniform(-0.03, 1.03, (4096, 3)).astype(np.float32))
+    gout = torch.from_numpy(rng.standard_normal((4096, 32)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        t = table.to(dev, dtype).detach().requires_grad_(True)
+        out = hash_encoder.hash_encode(t, xyz.to(dev), spec, forward="slabs",
+                                       backward="factors")
+        out.backward(gout.to(dev))
+        outs.append((out.detach().cpu(), t.grad.float().cpu()))
+    # the same features; float32 combines and row sums in another order
+    np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=0, atol=1e-6)
+    tol = 1e-4 if dtype == torch.float32 else 2**-7
+    np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=tol, atol=1e-4)

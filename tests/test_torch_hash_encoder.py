@@ -1,8 +1,12 @@
 """Parity of the port's additive hash encoder
 (virus_nerf_tpu_torch/ops/hash_encoder.py) with the JAX ``hash_encode``:
 base rows exactly, the forward and the table gradient (``jax.grad``, the
-JAX package's CPU backward) within stated tolerances, and the forward
-against the sequential numpy oracle ``hash_encode_np``."""
+JAX package's CPU backward) within stated tolerances for every route
+(``forward="corners"|"slabs"``, ``backward="product"|"factors"``) and for
+float32 and bf16 tables, and the forward against the sequential numpy
+oracle ``hash_encode_np``."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -74,18 +78,26 @@ def _jax_fwd_grad(js, table, xyz, gout):
     return np.asarray(out), np.asarray(vjp(jnp.asarray(gout))[0])
 
 
-def _torch_fwd_grad(ts, table, xyz, gout):
+@functools.cache
+def _jax_ref(name):
+    """(inputs, JAX forward, JAX table gradient) of a spec's default
+    inputs, computed once per spec."""
+    js, ts = _specs(name)
+    table, xyz, gout = _inputs(ts)
+    return (table, xyz, gout), _jax_fwd_grad(js, table, xyz, gout)
+
+
+def _torch_fwd_grad(ts, table, xyz, gout, **routes):
     t = torch.from_numpy(table.copy()).requires_grad_(True)
-    out = the.hash_encode(t, torch.from_numpy(xyz), ts)
+    out = the.hash_encode(t, torch.from_numpy(xyz), ts, **routes)
     out.backward(torch.from_numpy(gout))
     return out.detach().numpy(), t.grad.numpy()
 
 
 @pytest.mark.parametrize("name", list(SPECS))
 def test_forward_and_table_grad_match_jax(name):
-    js, ts = _specs(name)
-    table, xyz, gout = _inputs(ts)
-    out_j, grad_j = _jax_fwd_grad(js, table, xyz, gout)
+    _, ts = _specs(name)
+    (table, xyz, gout), (out_j, grad_j) = _jax_ref(name)
     out_t, grad_t = _torch_fwd_grad(ts, table, xyz, gout)
     # features in [0, 1), weights summing to 1: float32 combine in another
     # order (bf16-rounded corners on both sides for the 2^17-row levels)
@@ -123,3 +135,83 @@ def test_grad_matches_dense_autograd_reference():
     out = torch.einsum("lcnf,lcn->nlf", t[idx], w).reshape(len(xyz), -1)
     out.backward(torch.from_numpy(gout))
     np.testing.assert_allclose(grad, t.grad.numpy(), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", list(SPECS))
+def test_slabs_forward_matches_jax(name):
+    # the JAX forward is the slab forward (hash_encoder.py:538-557): the
+    # same features (bf16-rounded on the 2^17-row levels), combined in
+    # float32 in another order
+    _, ts = _specs(name)
+    (table, xyz, gout), (out_j, grad_j) = _jax_ref(name)
+    out_t, grad_t = _torch_fwd_grad(ts, table, xyz, gout, forward="slabs")
+    np.testing.assert_allclose(out_t, out_j, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(grad_t, grad_j, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(SPECS))
+def test_factor_backward_float32_matches_jax(name):
+    # float32 factors: the same products and sums as the product route;
+    # the gap to the JAX CPU backward is its prefix-sum cancellation over
+    # N = 384 samples (measured <= 1.4e-6 here)
+    _, ts = _specs(name)
+    (table, xyz, gout), (_, grad_j) = _jax_ref(name)
+    base, w = the.hash_base_rows(ts, torch.from_numpy(xyz))
+    grad_f = the._table_grad(ts, base, w, torch.from_numpy(gout), "factors",
+                             factor_dtype=torch.float32)
+    grad_p = the._table_grad(ts, base, w, torch.from_numpy(gout), "product")
+    assert torch.equal(grad_f, grad_p)
+    np.testing.assert_allclose(grad_f.numpy(), grad_j, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("forward", ["corners", "slabs"])
+@pytest.mark.parametrize("name", list(SPECS))
+def test_factor_backward_bf16_within_bf16_bound(name, forward):
+    # the route's bf16 factors: w and g each rounded to bf16 and their
+    # product rounded to bf16, each a relative error of at most 2^-8 (bf16
+    # keeps 8 significant bits), so a table entry's gradient moves by at
+    # most 3 * 2^-8 * sum|w g| over the (sample, corner) pairs that reach
+    # it (to first order), plus the JAX side's 1e-5
+    _, ts = _specs(name)
+    (table, xyz, gout), (_, grad_j) = _jax_ref(name)
+    _, grad_t = _torch_fwd_grad(ts, table, xyz, gout, forward=forward,
+                                backward="factors")
+    base, w = the.hash_base_rows(ts, torch.from_numpy(xyz))
+    mag = the._table_grad(ts, base, w, torch.from_numpy(np.abs(gout)),
+                          "factors", factor_dtype=torch.float32).numpy()
+    bound = 3.0 * 2.0**-8 * mag + 1e-5
+    assert np.all(np.abs(grad_t - grad_j) <= bound), np.max(
+        np.abs(grad_t - grad_j) - bound)
+    assert np.abs(grad_t - grad_j).max() > 0  # the factors were rounded
+
+
+@pytest.mark.parametrize("forward", ["corners", "slabs"])
+@pytest.mark.parametrize("name", ["bf16_level", "16x2_small"])
+def test_bf16_table_matches_jax(name, forward):
+    # a bf16 table (the mixed/bfloat16 compute modes): every level's
+    # features are the table's bf16 values, combined in float32; the
+    # gradient comes back in bf16 on both sides, so entries may differ by
+    # the bf16 rounding of float32 sums taken in another order (one bf16
+    # ulp, 2^-7 relative)
+    js, ts = _specs(name)
+    table, xyz, gout = _inputs(ts)
+    tb = jnp.asarray(table).astype(jnp.bfloat16)
+    out_j, vjp = jax.vjp(
+        jax.jit(lambda t: jhe.hash_encode(t, jnp.asarray(xyz), js)), tb)
+    grad_j = np.asarray(vjp(jnp.asarray(gout))[0]).astype(np.float32)
+    t = torch.from_numpy(table).to(torch.bfloat16).requires_grad_(True)
+    out = the.hash_encode(t, torch.from_numpy(xyz), ts, forward=forward)
+    out.backward(torch.from_numpy(gout))
+    assert out.dtype == torch.float32 and t.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(t.grad.float().numpy(), grad_j,
+                               rtol=2.0**-7, atol=1e-4)
+
+
+def test_unknown_route_is_refused():
+    _, ts = _specs("8x4_small")
+    table, xyz, _ = _inputs(ts, n=8)
+    with pytest.raises(ValueError):
+        the.hash_encode(torch.from_numpy(table), torch.from_numpy(xyz), ts,
+                        forward="packed")

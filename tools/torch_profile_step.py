@@ -1,11 +1,16 @@
 """Step time, device profile and kernel A/B of the PyTorch port on one GPU.
 
     python tools/torch_profile_step.py [--hash-variant xor] [--trace PATH]
+    python tools/torch_profile_step.py --hash-levels 16 --hash-feats 2 \
+        [--hash-forward slabs --hash-backward factors] [--dtype mixed] \
+        [--route-ab]
 
 At the bench configuration (``chip_smoke.bench_config``, bench.py:311-348;
 with ``--hash-variant xor`` the reference's 16 x F=2 XOR hash of 2^19 rows
-in its place), from a seeded random init, in one process and in this
-order:
+in its place, with ``--hash-levels``/``--hash-feats`` another additive
+layout; ``--hash-forward``/``--hash-backward`` the additive hash's routes
+and ``--dtype`` the compute mode), from a seeded random init, in one
+process and in this order:
 
 1. 288 training steps (bench.py's warm-up: the grid settles);
 2. 200 timed steps, grid updates included, host clock after a
@@ -18,8 +23,17 @@ order:
    96 steps per arm in turns kernels/plain/plain/kernels, then
    8 profiled steps per arm.  The plain arm swaps the module globals the
    step calls (``hash_encoder.segment_sum_sorted``,
-   ``hash_encoder.group_segment_sum_t_sorted`` and
-   ``fused_adam.adam_update_``) for their plain versions.
+   ``hash_encoder.group_segment_sum_t_sorted``,
+   ``hash_encoder.group_segment_sum_tsf_sorted``,
+   ``widen.widen_slabs_group`` and ``fused_adam.adam_update_``) for their
+   plain versions;
+7. with ``--route-ab`` (additive hash): in-train A/B of the routes
+   ``corners``+``product`` against ``slabs``+``factors`` on the same
+   state, 96 steps per turn in turns corners/slabs/slabs/corners twice
+   over (the host clock drifts between turns), then 8 profiled steps per
+   turn in turns corners/slabs/slabs/corners (device time, top kernels),
+   and a host-side profile of 8 steps per route (kernel launches and
+   synchronising runtime calls per step, top operators by host time).
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -43,11 +57,13 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import chip_smoke  # noqa: E402
 import virus_nerf_tpu_torch.ops.fused_adam as fused_adam  # noqa: E402
 import virus_nerf_tpu_torch.ops.hash_encoder as hash_encoder  # noqa: E402
+import virus_nerf_tpu_torch.ops.widen as widen  # noqa: E402
 from virus_nerf_tpu_torch.data.dataset import sample_batch  # noqa: E402
 from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset  # noqa: E402
 from virus_nerf_tpu_torch.models.renderer import render_rays  # noqa: E402
 from virus_nerf_tpu_torch.ops.segment_sum import (  # noqa: E402
     group_segment_sum_t_sorted_plain,
+    group_segment_sum_tsf_sorted_plain,
     segment_sum_sorted_plain,
 )
 from virus_nerf_tpu_torch.training.loss import compute_loss  # noqa: E402
@@ -67,8 +83,18 @@ def plain_kernels(on: bool):
         hash_encoder, "group_segment_sum_t_sorted",
         group_segment_sum_t_sorted_plain))
     stack.enter_context(mock.patch.object(
+        hash_encoder, "group_segment_sum_tsf_sorted",
+        group_segment_sum_tsf_sorted_plain))
+    stack.enter_context(mock.patch.object(
+        widen, "widen_slabs_group", widen.widen_slabs_group_plain))
+    stack.enter_context(mock.patch.object(
         fused_adam, "adam_update_", fused_adam.adam_update_plain_))
     return stack
+
+
+def use_routes(model, forward, backward):
+    """Switch the model's additive hash routes in place."""
+    model.hash_forward, model.hash_backward = forward, backward
 
 
 def run_steps(trainer, state, n):
@@ -97,6 +123,28 @@ def device_profile(trainer, state, n=8, top=14, trace=None):
     if trace:
         prof.export_chrome_trace(trace)
     return total / 1e3 / n, lines
+
+
+def host_profile(trainer, state, n=8, top=10):
+    """The host side of n steps: kernel launches and synchronising CUDA
+    runtime calls (synchronize, memcpy) per step with their host ms, and
+    the top operators by self host time."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_steps(trainer, state, n)
+    ev = prof.key_averages()
+
+    def per_step(pred):
+        sel = [e for e in ev if pred(e.key)]
+        return (sum(e.count for e in sel) / n,
+                sum(e.self_cpu_time_total for e in sel) / 1e3 / n)
+
+    launches = per_step(lambda k: "LaunchKernel" in k)
+    syncs = per_step(lambda k: "Synchronize" in k or "Memcpy" in k)
+    ops = sorted((e for e in ev if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_cpu_time_total)[:top]
+    lines = [f"{e.self_cpu_time_total / 1e3 / n:9.3f} host ms/step "
+             f"{e.count / n:7.1f} calls/step  {e.key[:80]}" for e in ops]
+    return launches, syncs, lines
 
 
 def phase_split(trainer, state, n=32):
@@ -171,7 +219,22 @@ def main():
     ap.add_argument("--hash-variant", default="additive",
                     choices=["additive", "xor"],
                     help="xor: the reference's 16 x F=2 XOR hash")
+    ap.add_argument("--hash-levels", type=int, default=8,
+                    help="additive hash levels (the bench's 8)")
+    ap.add_argument("--hash-feats", type=int, default=4,
+                    help="additive hash features per level (the bench's 4)")
+    ap.add_argument("--hash-forward", default="corners",
+                    choices=hash_encoder.FORWARD_ROUTES)
+    ap.add_argument("--hash-backward", default="product",
+                    choices=hash_encoder.BACKWARD_ROUTES)
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "mixed", "bfloat16"],
+                    help="compute mode (model.dtype)")
+    ap.add_argument("--route-ab", action="store_true",
+                    help="also A/B corners+product against slabs+factors")
     args = ap.parse_args()
+    if args.route_ab and args.hash_variant == "xor":
+        ap.error("--route-ab: the XOR hash has one route")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     smi = subprocess.run(
@@ -185,12 +248,20 @@ def main():
 
     cfg = chip_smoke.bench_config()
     cfg.training.max_steps = WARMUP
+    cfg.model.dtype = args.dtype
+    cfg.model.hash_levels = args.hash_levels
+    cfg.model.hash_features_per_level = args.hash_feats
     if args.hash_variant == "xor":
         cfg.model.hash_variant = "xor"
         cfg.model.hash_levels, cfg.model.hash_features_per_level = 16, 2
+    print(f"config: {cfg.model.hash_variant} {cfg.model.hash_levels} x "
+          f"{cfg.model.hash_features_per_level}, routes {args.hash_forward}/"
+          f"{args.hash_backward}, {args.dtype}", flush=True)
     dataset, scene, _ = make_synthetic_dataset(
         n_images=16, img_wh=(160, 120), device=dev)
-    trainer = Trainer(cfg, dataset, scene=scene, device=dev)
+    trainer = Trainer(cfg, dataset, scene=scene, device=dev,
+                      hash_forward=args.hash_forward,
+                      hash_backward=args.hash_backward)
     state = trainer.init_state()
     tic = time.perf_counter()
     state = trainer.train(state)
@@ -232,6 +303,37 @@ def main():
         with plain_kernels(arm == "plain"):
             dev_ms, top = device_profile(trainer, state)
         print(f"A/B {arm}: device time {dev_ms:.3f} ms/step over 8 steps",
+              flush=True)
+        print("\n".join(top), flush=True)
+
+    if not args.route_ab:
+        return
+    routes = {"corners+product": ("corners", "product"),
+              "slabs+factors": ("slabs", "factors")}
+    turns = ("corners+product", "slabs+factors", "slabs+factors",
+             "corners+product")
+    arms = {}
+    for arm in turns * 2:
+        use_routes(state.model, *routes[arm])
+        s0 = state.step
+        dt = run_steps(trainer, state, AB_STEPS)
+        arms.setdefault(arm, []).append(dt)
+        print(f"route A/B {arm}, steps {s0}-{state.step}: {1e3 * dt:.3f} "
+              f"ms/step, {cfg.training.batch_size / dt:.0f} rays/s", flush=True)
+    print("route A/B mean ms/step: " + ", ".join(
+        f"{k} {1e3 * np.mean(v):.3f}" for k, v in arms.items()), flush=True)
+    for arm in turns:
+        use_routes(state.model, *routes[arm])
+        dev_ms, top = device_profile(trainer, state)
+        print(f"route A/B {arm}: device time {dev_ms:.3f} ms/step over 8 "
+              f"steps", flush=True)
+        print("\n".join(top), flush=True)
+    for arm in turns[:2]:
+        use_routes(state.model, *routes[arm])
+        (n_launch, launch_ms), (n_sync, sync_ms), top = host_profile(trainer, state)
+        print(f"route A/B {arm}: host side over 8 steps: {n_launch:.1f} kernel "
+              f"launches/step ({launch_ms:.3f} host ms), {n_sync:.1f} "
+              f"synchronising runtime calls/step ({sync_ms:.3f} host ms)",
               flush=True)
         print("\n".join(top), flush=True)
 

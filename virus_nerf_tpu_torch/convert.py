@@ -20,13 +20,24 @@ def _t(x, device, dtype=torch.float32):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+def _leaf(x, device):
+    """A float32 leaf as float32; a bf16 leaf (an ``ml_dtypes.bfloat16``
+    array, which torch cannot read) as bf16, through float32, which holds
+    every bf16 value exactly."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return _t(x.astype(np.float32), device).to(torch.bfloat16)
+    return _t(x, device)
+
+
 def params_from_jax(params, device="cuda") -> Dict[str, torch.Tensor]:
     """``NGPParams`` -> ``NGPModel`` state dict.  MLP weights go from
-    JAX's (in, out) to ``nn.Linear``'s (out, in)."""
-    out = {"pos_table": _t(params.pos_table, device)}
+    JAX's (in, out) to ``nn.Linear``'s (out, in); the table keeps its dtype
+    (bf16 in the ``bfloat16`` compute mode)."""
+    out = {"pos_table": _leaf(params.pos_table, device)}
     for net, ws in (("xyz_net", params.xyz_w), ("rgb_net", params.rgb_w)):
         for i, w in enumerate(ws):
-            out[f"{net}.{i}.weight"] = _t(np.asarray(w).T, device).contiguous()
+            out[f"{net}.{i}.weight"] = _leaf(np.asarray(w).T, device).contiguous()
     return out
 
 

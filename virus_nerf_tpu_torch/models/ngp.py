@@ -1,7 +1,7 @@
 """Instant-NGP model: hash encoder + tiny MLPs + SH directions.
 
 Counterpart of ``NGPModel`` (virus_nerf_tpu/models/ngp.py; reference:
-modules/networks.py:32-191) as an ``nn.Module``, float32 compute only:
+modules/networks.py:32-191) as an ``nn.Module``:
 
 - xyz net: ``xyz_net_depth`` hidden layers x ``xyz_net_width``, no bias,
   ``xyz_net_out_dim`` outputs; sigma = trunc_exp(out[0]);
@@ -11,8 +11,21 @@ modules/networks.py:32-191) as an ``nn.Module``, float32 compute only:
 
 The hash encoder in both variants (``hash_variant``: "additive", the JAX
 package's production hash, or "xor", the reference's own,
-models/ngp.py:154-155); the triplane encoder and the ``mixed``/``bfloat16``
-compute modes are not ported yet.
+models/ngp.py:154-155); the additive one takes the routes ``hash_forward``
+and ``hash_backward`` of ``hash_encode``.  The compute modes
+(``compute_dtype``, models/ngp.py:73-78, 107-168):
+
+- ``float32``: everything float32;
+- ``mixed``: float32 parameters; the table is cast to bf16 inside the
+  graph before the encode (its gradient comes back through the cast,
+  bf16-rounded), and every MLP product takes bf16 inputs, accumulates in
+  float32 and gives bf16 activations;
+- ``bfloat16``: as ``mixed``, but the table parameter itself is bf16 (the
+  reference's half-precision table); the MLP weights stay float32 and are
+  cast at use, as in JAX.
+
+The XOR encoder runs in ``float32`` only; the triplane encoder is not
+ported.
 """
 
 from __future__ import annotations
@@ -23,14 +36,17 @@ from torch import nn
 
 from virus_nerf_tpu_torch.ops.common import trunc_exp
 from virus_nerf_tpu_torch.ops.hash_encoder import (
+    BACKWARD_ROUTES,
+    FORWARD_ROUTES,
     HashGridSpec,
     _SpecTensors,
     hash_encode,
     hash_encode_xor,
 )
-
-_ENCODERS = {"additive": hash_encode, "xor": hash_encode_xor}
 from virus_nerf_tpu_torch.ops.sh import sh_encode
+
+HASH_VARIANTS = ("additive", "xor")
+COMPUTE_DTYPES = ("float32", "mixed", "bfloat16")
 
 
 def _mlp(dims, generator, device):
@@ -58,17 +74,38 @@ class NGPModel(nn.Module):
         rgb_net_depth: int = 2,
         grid_size: int = 128,
         hash_variant: str = "additive",
+        hash_forward: str = "corners",
+        hash_backward: str = "product",
+        compute_dtype: str = "float32",
         generator: torch.Generator = None,
         device=None,
     ):
         """``generator`` draws the initial weights and lives on ``device``
         (the default generator when None)."""
         super().__init__()
-        if hash_variant not in _ENCODERS:
+        if hash_variant not in HASH_VARIANTS:
             raise ValueError(f"unknown hash_variant {hash_variant!r} (have "
-                             f"{sorted(_ENCODERS)})")
+                             f"{HASH_VARIANTS})")
+        if hash_forward not in FORWARD_ROUTES or hash_backward not in BACKWARD_ROUTES:
+            raise ValueError(
+                f"unknown hash route {hash_forward!r}/{hash_backward!r} (have "
+                f"{FORWARD_ROUTES} and {BACKWARD_ROUTES})"
+            )
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {compute_dtype!r} (have "
+                             f"{COMPUTE_DTYPES})")
+        if hash_variant == "xor" and (
+            (hash_forward, hash_backward, compute_dtype)
+            != ("corners", "product", "float32")
+        ):
+            raise NotImplementedError(
+                "the XOR hash has one route (corners/product) and runs in "
+                "float32 only"
+            )
         self.hash_variant = hash_variant
-        self._encode = _ENCODERS[hash_variant]
+        self.hash_forward, self.hash_backward = hash_forward, hash_backward
+        self.compute_dtype = compute_dtype
+        self._dtype = torch.float32 if compute_dtype == "float32" else torch.bfloat16
         self.scale = float(scale)
         self.grid_size = int(grid_size)
         self.xyz_net_out_dim = xyz_net_out_dim
@@ -76,9 +113,10 @@ class NGPModel(nn.Module):
             levels=levels, feat_dim=feature_per_level, base_res=base_res,
             max_res=max_res, max_params=2**log2_T,
         )
-        self.pos_table = nn.Parameter(
-            self.hash_spec.init_table(generator=generator, device=device)
-        )
+        table = self.hash_spec.init_table(generator=generator, device=device)
+        if compute_dtype == "bfloat16":
+            table = table.to(torch.bfloat16)
+        self.pos_table = nn.Parameter(table)
         xyz_dims = (
             [self.hash_spec.out_dim] + [xyz_net_width] * xyz_net_depth
             + [xyz_net_out_dim]
@@ -98,22 +136,33 @@ class NGPModel(nn.Module):
             self._consts = _SpecTensors(self.hash_spec, device)
         return self._consts
 
-    @staticmethod
-    def _run(layers, h):
+    def _run(self, layers, h):
+        """The MLP in the compute dtype (JAX ``_mlp``, models/ngp.py
+        :159-168): inputs and weights cast to it, each product accumulated
+        in float32 and rounded to it (bf16 rounding commutes with the
+        ReLU), the result back in float32."""
+        h = h.to(self._dtype)
         for i, lin in enumerate(layers):
-            h = lin(h)
+            h = nn.functional.linear(h, lin.weight.to(self._dtype))
             if i < len(layers) - 1:
                 h = torch.relu(h)
-        return h
+        return h.float()
+
+    def _encode_pos(self, x_unit):
+        consts = self._spec_consts(x_unit.device)
+        if self.hash_variant == "xor":
+            return hash_encode_xor(self.pos_table, x_unit, self.hash_spec, consts)
+        # "mixed": the float32 table is cast inside the graph
+        return hash_encode(
+            self.pos_table.to(self._dtype), x_unit, self.hash_spec, consts,
+            forward=self.hash_forward, backward=self.hash_backward,
+        )
 
     def density(self, x, return_feat: bool = False):
         """Density at positions x (..., 3) in [-scale, scale]^3."""
         shape = x.shape[:-1]
         x_unit = (x.reshape(-1, 3) + self.scale) / (2.0 * self.scale)
-        emb = self._encode(
-            self.pos_table, x_unit, self.hash_spec,
-            self._spec_consts(x.device),
-        )
+        emb = self._encode_pos(x_unit)
         h = self._run(self.xyz_net, emb)
         sigma = trunc_exp(h[:, 0]).reshape(shape)
         if return_feat:

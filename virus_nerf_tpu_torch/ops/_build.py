@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``virus_nerf_tpu_torch/csrc/*.cu`` compile, at first use,
-into ONE shared library with a plain C interface: one ``nvcc`` per source,
+All sources under ``virus_nerf_tpu_torch/csrc/*.cu`` (with the headers
+``csrc/*.cuh`` they include) compile, at first use, into ONE shared library with a plain C interface: one ``nvcc`` per source,
 all started together, then one link::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
@@ -10,7 +10,7 @@ all started together, then one link::
 
 The library lands in ``build/`` at the repository root (resolved from this
 file, not from the working directory) under a name that carries a hash of
-the sources and flags, so an edited source rebuilds and a stale library is
+the sources, headers and flags, so an edited source rebuilds and a stale library is
 never loaded.  No PyTorch header is included: the build takes seconds.
 
 The library is bound with ``ctypes``.  Every pointer and the stream pass as
@@ -52,9 +52,17 @@ _SIGNATURES = {
     # n_rows, stream
     "vn_segment_sum_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
     "vn_segment_sum_rows_chunk": (),
+    # wgt, is_bf16, keys, out, head_key, tail_key, head_sum, tail_sum, G,
+    # F, K, n_rows, stream
+    "vn_segment_sum_factors": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L,
+                               _I, _P),
+    # table, is_bf16, out, row0, size, G, F, corner_offsets, stream
+    "vn_widen_slabs": (_P, _I, _P, _L, _I, _I, _I, _P, _P),
     # p, g, mu, nu, n, lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2,
     # eps, stream
     "vn_fused_adam": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    "vn_fused_adam_bf16": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F,
+                           _F, _P),
 }
 
 
@@ -98,7 +106,7 @@ def build_library() -> Path:
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    digest = _source_hash(sources)
+    digest = _source_hash(sources + sorted(CSRC_DIR.glob("*.cuh")))
     out = BUILD_DIR / f"libvnerf_kernels_{digest}.so"
     if out.exists():
         return out

@@ -13,6 +13,11 @@ package gated its kernel to 1-D leaves because of XLA's column-major layout
 for narrow tables (fused_adam.py:135-139), a layout PyTorch does not have,
 so here the 2-D hash table takes the kernel too.  Smaller leaves use the
 plain version, where a launch would cost more than the update.
+
+A bf16 leaf (the ``bfloat16`` compute mode's hash table) keeps float32
+moments; the gradient is taken in float32, the update is computed in
+float32 and ``p = bf16(float32(p) + d)``, which is what
+``optax.apply_updates`` does to a bf16 leaf (fused_adam.py:133-142).
 """
 
 from __future__ import annotations
@@ -38,13 +43,17 @@ def adam_scalars(lr: float, b1: float, b2: float, count: int):
 
 
 def adam_update_plain_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
-    """Plain PyTorch version; updates p, mu and nu in place."""
+    """Plain PyTorch version; updates p, mu and nu in place (a bf16 p as
+    ``p = bf16(float32(p) + d)``)."""
     mu2 = b1 * mu + (1.0 - b1) * g
     nu2 = b2 * nu + (1.0 - b2) * g * g
     d = -lr * (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + eps)
     mu.copy_(mu2)
     nu.copy_(nu2)
-    p.add_(d)
+    if p.dtype == torch.float32:
+        p.add_(d)
+    else:
+        p.copy_(p.float() + d)
 
 
 def _f32(x: float) -> float:
@@ -56,12 +65,13 @@ def _adam_update_cuda_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
         if t.device != p.device or t.shape != p.shape:
             raise ValueError("adam_update_: p, g, mu, nu must share device and shape")
     lib = _build.library()
-    err = lib.vn_fused_adam(
+    entry = "vn_fused_adam" if p.dtype == torch.float32 else "vn_fused_adam_bf16"
+    err = getattr(lib, entry)(
         p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), p.numel(),
         lr, bc1, bc2, _f32(b1), _f32(1.0 - b1), _f32(b2), _f32(1.0 - b2),
         _f32(eps), torch.cuda.current_stream(p.device).cuda_stream,
     )
-    _build.check(err, "vn_fused_adam")
+    _build.check(err, entry)
     adam_update_.launches += 1
 
 
@@ -70,10 +80,16 @@ def adam_update_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
 
     A CUDA tensor launches ``csrc/fused_adam.cu`` (or raises); a CPU tensor
     takes :func:`adam_update_plain_`.  ``.launches`` counts kernel launches.
+    p is float32 or bf16; g, mu and nu are float32.
     """
+    if p.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"adam_update_: want a float32 or bf16 p, got {p.dtype}")
     for t in (p, g, mu, nu):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("adam_update_: want contiguous float32 tensors")
+        if not t.is_contiguous():
+            raise ValueError("adam_update_: want contiguous tensors")
+    for t in (g, mu, nu):
+        if t.dtype != torch.float32:
+            raise ValueError("adam_update_: want float32 g, mu and nu")
     if p.is_cuda:
         return _adam_update_cuda_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps)
     if p.device.type == "cpu":

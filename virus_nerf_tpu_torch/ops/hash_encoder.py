@@ -7,33 +7,51 @@ The table layout (``HashGridSpec``) and the additive hash
     idx = (x + y*P2 + z*P3) mod size
 
 are the JAX package's, so all eight trilinear corners of a sample sit at
-fixed per-level row offsets ``corner_offsets`` from its base corner.  What
-is ported is the computation, not the TPU's widened-slab and packed-bf16
-gather layouts:
+fixed per-level row offsets ``corner_offsets`` from its base corner.  Each
+direction of the additive encode has two routes, chosen by the arguments
+``forward`` and ``backward`` (``NGPModel`` passes them on):
 
-- forward: base rows (``hash_base_rows``), a plain gather of the 8 corner
-  rows ``offset + (base + corner_offsets[l, c]) mod size``, the trilinear
-  combine;
-- backward (table gradient only, as hash_encoder.py:683-889): one sort of
-  the (L, N) base-row keys, the (N, 8F) corner-weight x gradient values
-  permuted into the transposed (G, 8F, K) stream, a segment sum
-  (``ops/segment_sum.py``, the CUDA kernel on the card) once over the merged
-  run of single-level groups and once per same-size group, then the
-  3-step roll fold of the widened gradient back onto the table.
+- forward ``"corners"``: base rows (``hash_base_rows``), a plain gather of
+  the 8 corner rows ``offset + (base + corner_offsets[l, c]) mod size``,
+  the trilinear combine;
+- forward ``"slabs"``, the JAX package's own layout (hash_encoder.py
+  :518-557): per same-size level group, a widened slab whose row r holds
+  the 8 corner rows of base row r (``ops/widen.py``; bf16 groups built by
+  the CUDA kernel ``csrc/widen_slabs.cu`` on the card), then one (8, F)
+  row gathered per (sample, level) and combined in float32;
+- backward ``"product"`` (table gradient only, as hash_encoder.py:683-889):
+  one sort of the (L, N) base-row keys, the (N, 8F) corner-weight x
+  gradient values permuted into the transposed (G, 8F, K) stream, a
+  segment sum (``segment_sum_sorted``, ``csrc/segment_sum.cu``) once over
+  the merged run of single-level groups and once per same-size group, then
+  the 3-step roll fold of the widened gradient back onto the table;
+- backward ``"factors"``, the JAX fused path (hash_encoder.py:703-711,
+  762-775): the same sort, but the streams carry the sorted factors
+  ``[w (8 rows); g (F rows)]`` in bf16 and the segment sum
+  (``group_segment_sum_tsf_sorted``, ``csrc/segment_sum_factors.cu``) forms
+  the products itself; its F-major output is folded by
+  ``_fold_wide_t_fmajor``.
+
+The two directions are independent: both forwards save (base, weights).
+The table may be float32 or bf16 (the ``mixed``/``bfloat16`` compute modes);
+the gradient comes back in the table's dtype, as in JAX.  What the TPU
+needed beyond that is not ported: the packed-bf16 gather rows, the
+band-permuted slab order, the 16-row padding of the factor stream.
 
 Reference behaviour kept on purpose: the JAX forward gathers bf16-rounded
-corner features for every level whose size passes ``_packable_size``
+corner features for every level whose size passes ``packable_size``
 (>= 2^17 rows; hash_encoder.py:388-394, 482-496, 529-530), on every backend.
-The port rounds at the same point so the numbers match.
+Both forwards round at the same point so the numbers match.
 
 The XOR variant (``hash_encode_xor``, hash_encoder.py:895-1014) indexes
 each corner as the reference does: ``x + y*res + z*res^2`` on dense levels,
 ``(x ^ y*P2 ^ z*P3) mod size`` in uint32 on hashed ones.  Its corners have
-no fixed offsets, so the forward gathers the 8 corner rows in float32 (no
-bf16 rounding) and the backward segment-sums the (8N, F) corner stream of
-each level in row-major form (``group_segment_sum_t_sorted``, the CUDA
-kernel ``csrc/segment_sum_rows.cu`` on the card): one call for the merged
-run of single-size dense levels, one per group of same-size levels, so two
+no fixed offsets, so it has one route: the forward gathers the 8 corner
+rows in float32 (no bf16 rounding) and the backward segment-sums the
+(8N, F) corner stream of each level in row-major form
+(``group_segment_sum_t_sorted``, the CUDA kernel
+``csrc/segment_sum_rows.cu`` on the card): one call for the merged run of
+single-size dense levels, one per group of same-size levels, so two
 launches per backward at the reference's 16 x 2 layout.
 """
 
@@ -47,6 +65,7 @@ import torch
 
 from virus_nerf_tpu_torch.ops.segment_sum import (
     group_segment_sum_t_sorted,
+    group_segment_sum_tsf_sorted,
     segment_sum_sorted,
 )
 
@@ -55,6 +74,8 @@ _PRIME_Y = 2654435761
 _PRIME_Z = 805459861
 _PACK_MIN_ROWS = 1 << 17  # hash_encoder.py:409
 _MASK32 = 0xFFFFFFFF  # uint32 wrap-around of the XOR hash, in int64
+FORWARD_ROUTES = ("corners", "slabs")
+BACKWARD_ROUTES = ("product", "factors")
 
 
 def _align_to(x: int, y: int) -> int:
@@ -169,15 +190,18 @@ def same_size_level_groups(spec: HashGridSpec):
     return [(k[0], k[1], k[2], ls) for k, ls in groups]
 
 
+def packable_size(size: int, feat_dim: int) -> bool:
+    """Whether the JAX forward gathers a level of this size from a bf16
+    slab (``_packable_size``, hash_encoder.py:482-489)."""
+    wdt = 8 * feat_dim
+    return (wdt <= 64 and 128 % wdt == 0 and size % (128 // wdt) == 0
+            and size >= _PACK_MIN_ROWS)
+
+
 def bf16_rounded_levels(spec: HashGridSpec):
-    """Levels whose corner features the JAX forward rounds to bf16
-    (``_packable_size``, hash_encoder.py:482-489)."""
-    wdt = 8 * spec.feat_dim
-    return [
-        lvl for lvl, size in enumerate(spec.sizes)
-        if wdt <= 64 and 128 % wdt == 0 and size % (128 // wdt) == 0
-        and size >= _PACK_MIN_ROWS
-    ]
+    """Levels whose corner features the JAX forward rounds to bf16."""
+    return [lvl for lvl, size in enumerate(spec.sizes)
+            if packable_size(size, spec.feat_dim)]
 
 
 class _SpecTensors:
@@ -205,6 +229,46 @@ class _SpecTensors:
             [lvl < spec.begin_fast_hash_level for lvl in range(spec.levels)],
             torch.bool,
         )[:, None]
+        # the slabs forward: each same-size group as (levels, first row,
+        # size, corner offsets), and (built at first use) one index that
+        # gathers the slabs of every group the JAX forward keeps in float32
+        co = spec.corner_offsets
+        self.slab_groups = [
+            (lvls, spec.offsets[lvls[0]], size, tuple(int(o) for o in co[lvls[0]]))
+            for size, _, _, lvls in same_size_level_groups(spec)
+        ]
+        self.feat_dim, self.device = spec.feat_dim, device
+        self._f32_slabs = None
+
+    def f32_slabs(self):
+        """(levels (Lf,), slab rows (R, 8), each level's first slab row
+        (Lf, 1)), all int64, over the groups whose slabs stay float32 for a
+        float32 table (``packable_size`` false); None if there are none."""
+        if self._f32_slabs is None:
+            lvls, rows, first, n = [], [], [], 0
+            for lv, row0, size, offs in self.slab_groups:
+                if packable_size(size, self.feat_dim):
+                    continue
+                rows.append(slab_corner_rows(row0, size, len(lv), offs,
+                                             self.device).reshape(-1, 8))
+                lvls += lv
+                first += [n + j * size for j in range(len(lv))]
+                n += len(lv) * size
+            self._f32_slabs = (
+                torch.tensor(lvls, dtype=torch.long, device=self.device),
+                torch.cat(rows),
+                torch.tensor(first, dtype=torch.long, device=self.device)[:, None],
+            ) if lvls else ()
+        return self._f32_slabs or None
+
+
+def slab_corner_rows(row0: int, size: int, G: int, corner_offsets, device):
+    """(G, size, 8) int64 table rows of a same-size group's widened slabs,
+    ``row0 + g*size + (r + o_c) mod size``."""
+    r = torch.arange(size, device=device)[:, None]
+    o = torch.tensor([int(x) for x in corner_offsets], device=device)
+    g = size * torch.arange(G, device=device)[:, None, None]
+    return row0 + g + (r + o) % size
 
 
 def _grid_positions(c: _SpecTensors, xyz):
@@ -255,29 +319,26 @@ def _fold_wide_t(dt, sy: int, sz: int, s: int):
     return dt
 
 
-def table_grad_streams(spec: HashGridSpec, base, w, g):
-    """The segment sums of the table gradient, in table-row order
-    (hash_encoder.py:683-889, the transposed-stream kernel path).
+def _fold_wide_t_fmajor(dt, sy: int, sz: int, s: int, F: int):
+    """:func:`_fold_wide_t` for the factor segment sum's F-major rows (row
+    f*8 + c): each f-block of 8 rows is folded by the same three steps
+    (hash_encoder.py:664-680).  (..., 8F, s) -> (..., F, s)."""
+    lead = dt.shape[:-2]
+    folded = _fold_wide_t(dt.reshape(*lead, F, 8, s), sy, sz, s)
+    return folded.reshape(*lead, F, s)
 
-    Yields ``(vals, keys, n_rows, parts)``: the (G, 8F, K) values and (G, K)
-    sorted keys of one segment-sum call, and per table block of its output
+
+def _grouped_streams(spec: HashGridSpec, sk_all, level_stream):
+    """The segment-sum calls of the additive backward, in table-row order:
+    the merged run of consecutive single-level groups, then each group of
+    same-size levels (hash_encoder.py:790-884).
+
+    Yields ``(vals, keys, n_rows, parts)``: the (G, C, K) stream of one
+    call (``level_stream(lvl)`` gives a level's sorted (C, N) stream), its
+    (G, K) sorted int32 keys, and per table block of its output
     ``(row0, size, stride_y, stride_z)`` — ``out[:, :, row0:row0 + size]``
     folds onto that block.
     """
-    F = spec.feat_dim
-    n = base.shape[-1]
-    g = g.reshape(n, spec.levels, F).float()
-    # one sort of all (L, N) keys; a stable sort keeps equal keys in sample
-    # order, so the segment sums are deterministic
-    sk_all, sp_all = torch.sort(base, dim=1, stable=True)
-    sk_all = sk_all.to(torch.int32)
-
-    def sorted_stream(lvl):
-        # (8F, K) stream: d out / d W[base, c*F + f] = w[c] * g[f], permuted
-        # into key order and transposed (samples last)
-        gv = (w[lvl].t()[:, :, None] * g[:, lvl, None, :]).reshape(n, 8 * F)
-        return gv[sp_all[lvl]].t()
-
     def merged(buf):
         # consecutive single-level groups: each level's keys are sorted and
         # the per-level bases ascend, so the concatenated stream is sorted
@@ -286,7 +347,7 @@ def table_grad_streams(spec: HashGridSpec, base, w, g):
         keys = torch.cat(
             [sk_all[lvl] + int(bases[i]) for i, (_, _, _, lvl) in enumerate(buf)]
         )
-        vals = torch.cat([sorted_stream(b[3]) for b in buf], dim=1)
+        vals = torch.cat([level_stream(b[3]) for b in buf], dim=1)
         parts = [(int(bases[i]), size, sy, sz)
                  for i, (size, sy, sz, _) in enumerate(buf)]
         return vals[None].contiguous(), keys[None].contiguous(), int(bases[-1]), parts
@@ -299,59 +360,164 @@ def table_grad_streams(spec: HashGridSpec, base, w, g):
         if merge_buf:
             yield merged(merge_buf)
             merge_buf = []
-        vals = torch.stack([sorted_stream(lvl) for lvl in lvls])
+        vals = torch.stack([level_stream(lvl) for lvl in lvls])
         keys = sk_all[lvls[0]:lvls[-1] + 1]
         yield vals.contiguous(), keys.contiguous(), size, [(0, size, sy, sz)]
     if merge_buf:
         yield merged(merge_buf)
 
 
-def _table_grad(spec: HashGridSpec, base, w, g):
-    """Table gradient of the encode: each stream's segment sum, folded back
-    onto its table blocks."""
+def _sorted_keys(base):
+    """One sort of all (L, N) keys; a stable sort keeps equal keys in
+    sample order, so the segment sums are deterministic."""
+    sk_all, sp_all = torch.sort(base, dim=1, stable=True)
+    return sk_all.to(torch.int32), sp_all
+
+
+def table_grad_streams(spec: HashGridSpec, base, w, g):
+    """The segment sums of the ``product`` backward (the transposed-stream
+    kernel path of hash_encoder.py:683-889).
+
+    Yields ``(vals, keys, n_rows, parts)`` as :func:`_grouped_streams`
+    says, with (G, 8F, K) float32 values.
+    """
+    F = spec.feat_dim
+    n = base.shape[-1]
+    g = g.reshape(n, spec.levels, F).float()
+    sk_all, sp_all = _sorted_keys(base)
+
+    def sorted_stream(lvl):
+        # (8F, K) stream: d out / d W[base, c*F + f] = w[c] * g[f], permuted
+        # into key order and transposed (samples last)
+        gv = (w[lvl].t()[:, :, None] * g[:, lvl, None, :]).reshape(n, 8 * F)
+        return gv[sp_all[lvl]].t()
+
+    return _grouped_streams(spec, sk_all, sorted_stream)
+
+
+def table_grad_factor_streams(spec: HashGridSpec, base, w, g,
+                              factor_dtype=torch.bfloat16):
+    """The segment sums of the ``factors`` backward (hash_encoder.py
+    :762-775): the same calls in the same order as
+    :func:`table_grad_streams`, but each stream is the sorted (8 + F, K)
+    factor stream ``[w (8 rows); g (F rows)]`` in ``factor_dtype``.
+
+    Yields ``(wgt, keys, n_rows, parts)`` as :func:`_grouped_streams` says.
+    """
+    F = spec.feat_dim
+    n = base.shape[-1]
+    sk_all, sp_all = _sorted_keys(base)
+    # (L, 8 + F, N): each level's corner weights over its gradient features,
+    # cast before the permutation (the JAX fused path casts both factors,
+    # hash_encoder.py:729-732), then permuted into key order
+    fac = torch.cat(
+        [w, g.reshape(n, spec.levels, F).permute(1, 2, 0).float()], dim=1
+    ).to(factor_dtype)
+    fac = fac.gather(2, sp_all[:, None, :].expand(-1, 8 + F, -1))
+    return _grouped_streams(spec, sk_all, lambda lvl: fac[lvl])
+
+
+def _table_grad(spec: HashGridSpec, base, w, g, backward: str = "product",
+                factor_dtype=torch.bfloat16):
+    """Table gradient of the encode by the ``backward`` route: each
+    stream's segment sum, folded back onto its table blocks."""
+    F = spec.feat_dim
+    if backward == "factors":
+        streams = table_grad_factor_streams(spec, base, w, g, factor_dtype)
+
+        def reduce(vals, keys, n_rows):
+            return group_segment_sum_tsf_sorted(vals, keys, n_rows, F)
+
+        def fold(dt, sy, sz, size):
+            return _fold_wide_t_fmajor(dt, sy, sz, size, F)
+    else:
+        streams = table_grad_streams(spec, base, w, g)
+        reduce, fold = segment_sum_sorted, _fold_wide_t
     blocks = []
-    for vals, keys, n_rows, parts in table_grad_streams(spec, base, w, g):
-        out = segment_sum_sorted(vals, keys, n_rows)
+    for vals, keys, n_rows, parts in streams:
+        out = reduce(vals, keys, n_rows)
         for row0, size, sy, sz in parts:
-            ft = _fold_wide_t(out[:, :, row0:row0 + size], sy, sz, size)
-            blocks.append(ft.transpose(1, 2).reshape(-1, spec.feat_dim))
+            ft = fold(out[:, :, row0:row0 + size], sy, sz, size)
+            blocks.append(ft.transpose(1, 2).reshape(-1, F))
     return torch.cat(blocks, dim=0)  # (total_rows, F)
+
+
+def _corner_gather_combine(table, base, w, spec: HashGridSpec,
+                           consts: _SpecTensors):
+    """The ``corners`` forward: gather the 8 corner rows of every (sample,
+    level) and combine them.  Returns (N, L * F) float32."""
+    idx = consts.offsets[:, None, :] + (
+        base[:, None, :] + consts.corner_offsets[:, :, None]
+    ) % consts.sizes[:, None, :]  # (L, 8, N)
+    feats = table[idx].float()  # (L, 8, N, F)
+    feats = torch.where(
+        consts.bf16_levels[:, None, None, None],
+        feats.to(torch.bfloat16).float(), feats,
+    )
+    out = torch.einsum("lcnf,lcn->nlf", feats, w)
+    return out.reshape(base.shape[1], spec.out_dim)
+
+
+def _slab_gather_combine(table, base, w, spec: HashGridSpec,
+                         consts: _SpecTensors):
+    """The ``slabs`` forward (hash_encoder.py:518-535): build the widened
+    slabs (``ops/widen.py:wide_slabs``: bf16 groups by B5, the small
+    float32 levels by one gather), gather one (8, F) row per (sample,
+    level) and combine in float32.  Returns (N, L * F) float32."""
+    # imported here: ops/widen.py imports this module for the spec helpers
+    from virus_nerf_tpu_torch.ops.widen import wide_slabs
+
+    n, F = base.shape[1], spec.feat_dim
+    out = w.new_empty((n, spec.levels, F))
+    f32_part, groups = wide_slabs(table, consts)
+    if f32_part:
+        lv, slab, first = f32_part
+        feats = slab[base[lv] + first]  # (Lf, N, 8, F)
+        out[:, lv] = torch.einsum("lncf,lcn->nlf", feats, w[lv])
+    for lvls, slab in groups:
+        G, size = slab.shape[:2]
+        lv = slice(lvls[0], lvls[-1] + 1)
+        rows = base[lv] + size * torch.arange(G, device=base.device)[:, None]
+        feats = slab.reshape(G * size, 8, F)[rows].float()  # (G, N, 8, F)
+        out[:, lv] = torch.einsum("gncf,gcn->ngf", feats, w[lv])
+    return out.reshape(n, spec.out_dim)
 
 
 class _HashEncode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, xyz, spec, consts):
+    def forward(ctx, table, xyz, spec, consts, forward, backward):
         base, w = hash_base_rows(spec, xyz, consts)
-        idx = consts.offsets[:, None, :] + (
-            base[:, None, :] + consts.corner_offsets[:, :, None]
-        ) % consts.sizes[:, None, :]  # (L, 8, N)
-        feats = table[idx]  # (L, 8, N, F)
-        feats = torch.where(
-            consts.bf16_levels[:, None, None, None],
-            feats.to(torch.bfloat16).float(), feats,
-        )
-        out = torch.einsum("lcnf,lcn->nlf", feats, w)
-        ctx.spec = spec
+        if forward == "slabs":
+            out = _slab_gather_combine(table, base, w, spec, consts)
+        else:
+            out = _corner_gather_combine(table, base, w, spec, consts)
+        ctx.spec, ctx.backward, ctx.table_dtype = spec, backward, table.dtype
         ctx.save_for_backward(base, w)
-        return out.reshape(xyz.shape[0], spec.out_dim)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         base, w = ctx.saved_tensors
-        return _table_grad(ctx.spec, base, w, g), None, None, None
+        grad = _table_grad(ctx.spec, base, w, g, ctx.backward)
+        return grad.to(ctx.table_dtype), None, None, None, None, None
 
 
-def hash_encode(table, xyz, spec: HashGridSpec, consts: _SpecTensors = None):
+def hash_encode(table, xyz, spec: HashGridSpec, consts: _SpecTensors = None,
+                forward: str = "corners", backward: str = "product"):
     """Encode positions through the multiresolution hash grid.
 
     The gradient flows only into the table (sample positions come from the
     non-differentiable ray march).
 
     Args:
-        table: (total_rows, feat_dim) float32 parameter table.
+        table: (total_rows, feat_dim) float32 or bf16 parameter table.
         xyz: (N, 3) positions in [0, 1].
         consts: the spec's per-level tensors on xyz's device (built here if
             not given; ``NGPModel`` caches them).
+        forward: ``"corners"`` (8 corner rows per sample and level) or
+            ``"slabs"`` (one widened row; see the module doc).
+        backward: ``"product"`` (the (8F, K) value stream) or ``"factors"``
+            (the bf16 (8 + F, K) factor stream).
     Returns:
         (N, levels * feat_dim) float32 embedding.
     """
@@ -360,9 +526,17 @@ def hash_encode(table, xyz, spec: HashGridSpec, consts: _SpecTensors = None):
             f"hash_encode: want a ({spec.total_rows}, {spec.feat_dim}) table, "
             f"got {tuple(table.shape)}"
         )
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"hash_encode: want a float32 or bf16 table, got "
+                        f"{table.dtype}")
+    if forward not in FORWARD_ROUTES or backward not in BACKWARD_ROUTES:
+        raise ValueError(
+            f"hash_encode: unknown route forward={forward!r} backward="
+            f"{backward!r} (have {FORWARD_ROUTES} and {BACKWARD_ROUTES})"
+        )
     if consts is None:
         consts = _SpecTensors(spec, xyz.device)
-    return _HashEncode.apply(table, xyz, spec, consts)
+    return _HashEncode.apply(table, xyz, spec, consts, forward, backward)
 
 
 # --------------------------------------------------------------- XOR hash

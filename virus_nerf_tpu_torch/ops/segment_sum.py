@@ -1,6 +1,6 @@
 """Dense segment sums over key-sorted streams.
 
-Two layouts of the value stream, each with its CUDA kernel (design, bound
+Three forms of the value stream, each with its CUDA kernel (design, bound
 and the deliberate differences from the TPU kernel are in each header) and
 its plain PyTorch version, one ``index_add_``:
 
@@ -12,7 +12,12 @@ its plain PyTorch version, one ``index_add_``:
   function of that name (:725), TPU kernel ``_t_kernel`` (:101), CUDA
   ``csrc/segment_sum_rows.cu``; with ``group_segment_sum_t`` (:748, sorts
   first) and ``windowed_segment_sum`` (:769, one stream); the XOR hash
-  encoder's backward.
+  encoder's backward;
+- fused factors (G, 8+F, K): ``group_segment_sum_tsf_sorted``, counterpart
+  of the function of that name (:504), TPU kernel ``_tsf_kernel`` (:333),
+  CUDA ``csrc/segment_sum_factors.cu``; the values ``w[c] * g[f]`` are
+  formed from the sorted corner weights and gradients inside the kernel;
+  the additive hash encoder's ``factors`` backward.
 """
 
 from __future__ import annotations
@@ -25,6 +30,10 @@ from virus_nerf_tpu_torch.ops import _build
 KERNEL_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
 # F values the row-major kernel is instantiated for (csrc/segment_sum_rows.cu)
 ROW_KERNEL_WIDTHS = (1, 2, 4, 8)
+# F values the factor-stream kernel is instantiated for
+# (csrc/segment_sum_factors.cu): those of ``fuse_applicable``
+# (segment_sum_pallas.py:448-451)
+FACTOR_KERNEL_FEATS = (1, 2, 4, 8)
 
 
 def segment_sum_sorted_plain(vals, keys, n_rows: int):
@@ -230,3 +239,104 @@ def windowed_segment_sum(sv, sk, n_rows: int):
         (n_rows, F) float32 sums.
     """
     return group_segment_sum_t_sorted(sv[None], sk[None], n_rows)[0].t()
+
+
+# ------------------------------------------------------ fused factor streams
+def factor_products(wgt, feat_dim: int):
+    """The (G, 8F, K) values of a factor stream in F-major row order,
+    ``V[f*8 + c] = w[c] * g[f]``, multiplied in the factors' dtype (a bf16
+    product is rounded to bf16, as the JAX fallback's is,
+    segment_sum_pallas.py:524-530)."""
+    w = wgt[:, :8]
+    return torch.cat([w * wgt[:, 8 + f:9 + f] for f in range(feat_dim)], dim=1)
+
+
+def group_segment_sum_tsf_sorted_plain(wgt, sk, n_rows: int, feat_dim: int):
+    """Plain PyTorch version: the products, then one ``index_add_`` in
+    float32 (:func:`segment_sum_sorted_plain`).
+
+    Args:
+        wgt: (G, 8 + F, K) float32 or bf16 factors, each group sorted by
+            its key: rows 0..7 corner weights, rows 8..8+F gradients.
+        sk: (G, K) int32 row ids in [0, n_rows), sorted per group.
+    Returns:
+        (G, 8F, n_rows) float32 sums, F-major rows (row f*8 + c).
+    """
+    return segment_sum_sorted_plain(
+        factor_products(wgt, feat_dim).float(), sk, n_rows
+    )
+
+
+def _check_factor_args(wgt, sk, n_rows: int, feat_dim: int):
+    name = "group_segment_sum_tsf_sorted"
+    if wgt.dtype not in (torch.float32, torch.bfloat16) or sk.dtype != torch.int32:
+        raise TypeError(
+            f"{name}: want float32 or bf16 factors and int32 keys, got "
+            f"{wgt.dtype} and {sk.dtype}"
+        )
+    if (wgt.dim() != 3 or sk.dim() != 2 or wgt.shape[1] != 8 + feat_dim
+            or tuple(sk.shape) != (wgt.shape[0], wgt.shape[2])):
+        raise ValueError(
+            f"{name}: want factors (G, 8 + {feat_dim}, K) and keys (G, K), "
+            f"got {tuple(wgt.shape)} and {tuple(sk.shape)}"
+        )
+    if wgt.device != sk.device:
+        raise ValueError(f"{name}: factors on {wgt.device}, keys on {sk.device}")
+    if not 0 <= n_rows < 2**31 - 1:
+        raise ValueError(f"{name}: bad n_rows {n_rows}")
+
+
+def _group_segment_sum_tsf_sorted_cuda(wgt, sk, n_rows: int, feat_dim: int):
+    G, _, K = wgt.shape
+    if feat_dim not in FACTOR_KERNEL_FEATS:
+        raise ValueError(
+            f"group_segment_sum_tsf_sorted: F={feat_dim} has no kernel (have "
+            f"{FACTOR_KERNEL_FEATS})"
+        )
+    if not (wgt.is_contiguous() and sk.is_contiguous()):
+        raise ValueError("group_segment_sum_tsf_sorted: factors and keys must "
+                         "be contiguous")
+    lib = _build.library()
+    n_chunks = max(1, -(-K // lib.vn_segment_sum_rows_chunk()))
+    dev, V = wgt.device, 8 * feat_dim
+    out = torch.empty((G, V, n_rows), dtype=torch.float32, device=dev)
+    # per chunk: the keys and sums of its first and last run
+    bkeys = torch.empty((2, G, n_chunks), dtype=torch.int32, device=dev)
+    bsums = torch.empty((2, G, n_chunks, V), dtype=torch.float32, device=dev)
+    err = lib.vn_segment_sum_factors(
+        wgt.data_ptr(), int(wgt.dtype == torch.bfloat16), sk.data_ptr(),
+        out.data_ptr(), bkeys[0].data_ptr(), bkeys[1].data_ptr(),
+        bsums[0].data_ptr(), bsums[1].data_ptr(), G, feat_dim, K, n_rows,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "vn_segment_sum_factors")
+    group_segment_sum_tsf_sorted.launches += 1
+    return out
+
+
+def group_segment_sum_tsf_sorted(wgt, sk, n_rows: int, feat_dim: int):
+    """``out[g, f*8 + c, r] = sum_{i: sk[g, i] == r} w[g, c, i] * g[g, f, i]``
+    over a sorted factor stream ``wgt = [w (8 rows); g (F rows)]``.
+
+    A CUDA tensor launches ``csrc/segment_sum_factors.cu`` (or raises); a
+    CPU tensor takes :func:`group_segment_sum_tsf_sorted_plain`.
+    ``.launches`` counts kernel launches.
+
+    Args:
+        wgt: (G, 8 + F, K) float32 or bf16 factors, each group sorted by
+            its key.
+        sk: (G, K) int32 sorted row ids in [0, n_rows).
+    Returns:
+        (G, 8F, n_rows) float32 sums, F-major rows (row f*8 + c).
+    """
+    _check_factor_args(wgt, sk, n_rows, feat_dim)
+    if wgt.is_cuda:
+        return _group_segment_sum_tsf_sorted_cuda(wgt, sk, n_rows, feat_dim)
+    if wgt.device.type == "cpu":
+        return group_segment_sum_tsf_sorted_plain(wgt, sk, n_rows, feat_dim)
+    raise ValueError(
+        f"group_segment_sum_tsf_sorted: unsupported device {wgt.device}"
+    )
+
+
+group_segment_sum_tsf_sorted.launches = 0

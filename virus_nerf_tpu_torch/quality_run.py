@@ -2,10 +2,15 @@
 
     python -m virus_nerf_tpu_torch.quality_run --hash-variant xor \\
         --hash-levels 16 --hash-feats 2 [--steps 2000] [--device cuda]
+    python -m virus_nerf_tpu_torch.quality_run --hash-levels 16 \\
+        --hash-feats 2 --hash-forward slabs --hash-backward factors \\
+        [--dtype mixed|bfloat16]
 
 Counterpart of ``tools/quality_run.py`` with the same flags and the same
-JSON keys, plus ``device`` (the card's name, or "cpu") and
-``eval_seconds``.  It trains the bench synthetic scene (24 images at
+JSON keys, plus ``device`` (the card's name, or "cpu"), ``eval_seconds``
+and the port's choices ``hash_forward``, ``hash_backward`` (the additive
+hash's routes, ``ops/hash_encoder.py``) and ``dtype`` (the compute mode,
+``model.dtype``).  It trains the bench synthetic scene (24 images at
 160x120, every third image held out) and records PSNR/SSIM and the zone
 NND of the NeRF, ToF and USS scans on the held-out images (reference score:
 run_optimization.py:123-125, mean NND of the NeRF scan, zone 3).  It runs
@@ -53,6 +58,7 @@ def quality_config(args) -> Config:
     cfg = Config()
     cfg.seed = args.seed
     cfg.model.hash_variant = args.hash_variant
+    cfg.model.dtype = args.dtype
     cfg.model.grid_type = "occ"
     cfg.model.grid_size = 128
     cfg.model.hash_levels = args.hash_levels
@@ -100,6 +106,17 @@ def parse_args(argv=None):
                    help="marching quadrature dt = sqrt(3)/res")
     p.add_argument("--batch-size", type=int, default=4096,
                    help="rays per step (steps scale down to keep total rays)")
+    p.add_argument("--hash-forward", default="corners",
+                   choices=["corners", "slabs"],
+                   help="additive hash forward: 8 corner rows, or one row of "
+                        "the widened slabs")
+    p.add_argument("--hash-backward", default="product",
+                   choices=["product", "factors"],
+                   help="additive hash backward: the (8F, K) product stream, "
+                        "or the bf16 (8 + F, K) factor stream")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "mixed", "bfloat16"],
+                   help="compute mode (model.dtype)")
     p.add_argument("--hash-levels", type=int, default=8)
     p.add_argument("--hash-feats", type=int, default=4)
     p.add_argument("--hash-log2t", type=int, default=19)
@@ -140,7 +157,9 @@ def run(args):
     sel_train = np.arange(24) % 3 != 0
     train_ds = subset(dataset, sel_train)
     test_ds = subset(dataset, ~sel_train)
-    trainer = Trainer(cfg, train_ds, scene=scene, device=dev)
+    trainer = Trainer(cfg, train_ds, scene=scene, device=dev,
+                      hash_forward=args.hash_forward,
+                      hash_backward=args.hash_backward)
     ev = Evaluator(cfg, test_ds, scene, img_wh=info["img_wh"],
                    device=trainer.device)
     test_idxs = np.arange(test_ds.n_images)
@@ -185,6 +204,9 @@ def run(args):
 
     out = {
         "hash_variant": args.hash_variant,
+        "hash_forward": args.hash_forward,
+        "hash_backward": args.hash_backward,
+        "dtype": args.dtype,
         "hash_levels": args.hash_levels,
         "hash_feats": args.hash_feats,
         "hash_log2t": args.hash_log2t,

@@ -11,8 +11,10 @@ the order of the JAX package's chunk body (trainer.py:484-510).
 Per-step metrics stay on the device and are fetched once per chunk of
 ``evaluation.eval_every_n_steps`` steps, not once per step.
 
-Ported: the occupancy ("occ") grid, the additive and XOR hash encoders,
-float32 compute, constant-dt marching, the "all"/"same" image and
+Ported: the occupancy ("occ") grid, the additive hash encoder (with its
+routes ``hash_forward``/``hash_backward``, arguments of the trainer) and the
+XOR one, the ``float32``, ``mixed`` and ``bfloat16`` compute modes
+(``model.dtype``; XOR in float32 only), constant-dt marching, the "all"/"same" image and
 "random"/"valid_uss"/"valid_tof" pixel strategies.  Not yet: checkpoints,
 debug_mode, intermediate evaluation, the NGP grid, real-time simulation,
 the distortion loss and data parallelism.
@@ -76,7 +78,7 @@ def _check_supported(cfg: Config) -> None:
         "model.grid_type": (cfg.model.grid_type, "occ"),
         "model.encoder_type": (cfg.model.encoder_type, "hash"),
         "model.hash_variant": (cfg.model.hash_variant, ("additive", "xor")),
-        "model.dtype": (cfg.model.dtype, "float32"),
+        "model.dtype": (cfg.model.dtype, ("float32", "mixed", "bfloat16")),
         "exp_step_factor": (cfg.exp_step_factor, 0.0),
         "training.distortion_loss_w": (cfg.training.distortion_loss_w, 0.0),
         "training.debug_mode": (cfg.training.debug_mode, False),
@@ -96,7 +98,10 @@ class Trainer:
     """Training loop around the model, the optimizer and the grid."""
 
     def __init__(self, cfg: Config, train_dataset: DeviceDataset,
-                 scene: Optional[Scene] = None, device=None):
+                 scene: Optional[Scene] = None, device=None,
+                 hash_forward: str = "corners", hash_backward: str = "product"):
+        """``hash_forward`` / ``hash_backward``: the additive hash's routes
+        (``hash_encode``); the compute mode is ``cfg.model.dtype``."""
         _check_supported(cfg)
         self.cfg = cfg
         self.device = _full_device(
@@ -107,9 +112,11 @@ class Trainer:
                 f"dataset on {train_dataset.device}, trainer on {self.device}"
             )
         self.train_dataset = train_dataset
-        # full float32 matrix products and convolutions on the card
+        # full float32 matrix products and convolutions on the card, and
+        # float32 accumulation of bf16 products (the mixed/bfloat16 modes)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
         m = cfg.model
         self.model_kwargs = dict(
@@ -119,7 +126,8 @@ class Trainer:
             xyz_net_width=m.xyz_net_width, xyz_net_depth=m.xyz_net_depth,
             xyz_net_out_dim=m.xyz_net_out_dim, rgb_net_width=m.rgb_net_width,
             rgb_net_depth=m.rgb_net_depth, grid_size=m.grid_size,
-            hash_variant=m.hash_variant,
+            hash_variant=m.hash_variant, hash_forward=hash_forward,
+            hash_backward=hash_backward, compute_dtype=m.dtype,
         )
         # metric -> cube conversions (reference: training/loss.py:29,
         # modules/occupancy_grid.py:55-58)
