@@ -7,10 +7,15 @@ Phases, each printed as it finishes; any failure exits non-zero:
 1. build the CUDA kernels from ``virus_nerf_tpu_torch/csrc`` (nvcc, one
    process per source, all started together);
 2. hold each kernel against its plain PyTorch version (and the segment sums
-   against a float64 sum) on the card and time them (CUDA events, in turns
+   against a float64 sum; each segment sum also against its own second call,
+   bit for bit) on the card and time them (CUDA events, in turns
    kernel/plain/library/library/plain/kernel): the transposed segment sum
    (B1) at the kernel-CI cases of bench.py, the row-major segment sum (B3)
-   on uniform, skewed, padded-row and odd-group keys;
+   on uniform, skewed, padded-row and odd-group keys, B1 and the factor
+   segment sum (B4, bf16, F = 2) on 917,504 entries over 524,288 rows with
+   700,000 on one row and on uniform keys, and B1 and B4 with every key
+   outside [0, n_rows) (all 0); ptxas's registers and spills of B1 and B4
+   are printed after the build;
 3. the bench path: ``Trainer`` at the bench configuration (bench.py:311-348:
    synthetic scene 16 x 160x120, 4096 rays, 8 x F=4 additive hash levels of
    2^19 rows, 128^3 VIRUS grid updated every 8 steps, S=128, budget
@@ -138,6 +143,87 @@ def bench_segment_cases(dev):
         vals = torch.randn((G, 16, K), generator=gen, device=dev)
         out.append((name, vals, k.to(torch.int32).contiguous(), R))
     return out
+
+
+def skew_segment_cases(dev, layout):
+    """(name, vals, keys, n_rows) on the card: a stream of 917,504 entries
+    over 524,288 rows with 700,000 of them on one row, and the same K and
+    n_rows on uniform keys; (1, 32, K) float32 values for B1 ("ts"), a
+    (1, 10, K) bf16 factor stream (F = 2) for B4 ("tsf")."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    K, R = 917504, 524288
+    uniform = torch.sort(torch.randint(0, R, (1, K), generator=gen, device=dev),
+                         dim=1).values
+    skew = uniform.clone()
+    skew[0, 100000:800000] = R // 3  # one row of 700,000 samples
+    out = []
+    for name, k in (("uniform_917504", uniform),
+                    ("one_row_700000", torch.sort(skew, dim=1).values)):
+        if layout == "ts":
+            vals = torch.randn((1, 32, K), generator=gen, device=dev)
+        else:
+            vals = torch.cat([torch.rand((1, 8, K), generator=gen, device=dev),
+                              torch.randn((1, 2, K), generator=gen, device=dev)],
+                             dim=1).to(torch.bfloat16)
+        out.append((f"{layout}_{name}", vals, k.to(torch.int32).contiguous(), R))
+    return out
+
+
+def check_out_of_range(dev, layout):
+    """Every key outside [0, n_rows): the output is exactly 0, twice."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    R = 4096
+    keys = torch.sort(torch.cat([
+        torch.randint(-5000, 0, (2, 30000), generator=gen, device=dev),
+        torch.randint(R, R + 900, (2, 60000), generator=gen, device=dev)],
+        dim=1), dim=1).values.to(torch.int32).contiguous()
+    width = 32 if layout == "ts" else 10
+    vals = torch.randn((2, width, keys.shape[1]), generator=gen, device=dev)
+    if layout == "tsf":
+        vals = vals.to(torch.bfloat16)
+    kernel = _ops(2)[layout][0]
+    got = kernel(vals, keys, R)
+    again = kernel(vals, keys, R)
+    torch.cuda.synchronize()
+    ok = not bool(got.any()) and torch.equal(got, again)
+    log(f"segment_sum[{layout}] all keys out of range: G=2 K={keys.shape[1]} "
+        f"n_rows={R}: output all 0 and repeatable {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"segment_sum[{layout}] with every key out of range")
+
+
+def ptxas_report(lib_path, sources=("segment_sum.cu", "segment_sum_factors.cu")):
+    """Registers and spills of every kernel of ``sources``, from the
+    ``-Xptxas -v`` report of the build."""
+    from virus_nerf_tpu_torch.ops import _build
+
+    path = _build.ptxas_log(lib_path)
+    if not path.exists():
+        log(f"ptxas: no report beside {lib_path.name}")
+        return
+    section, name, spills = None, None, ""
+    for line in path.read_text().splitlines():
+        if line.startswith("== "):
+            section = line.strip("= ")
+        elif section in sources and "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif section in sources and name and "spill stores" in line:
+            spills = line.strip()
+        elif section in sources and name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            log(f"ptxas {section}: {_demangle(name)}: {regs}; {spills}")
+            name = None
+
+
+def _demangle(name: str) -> str:
+    try:
+        out = subprocess.run(["cu++filt", name], capture_output=True, text=True,
+                             timeout=10)
+    except OSError:
+        return name
+    return out.stdout.strip() or name
 
 
 def rows_segment_cases(dev):
@@ -269,6 +355,7 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
     kernel, plain, terms_of = _ops(F)[layout]
     G, K = keys.shape
     got = kernel(vals, keys, R)
+    again = kernel(vals, keys, R)
     want = plain(vals, keys, R)
     terms = terms_of(vals)  # (G, width, K)
     width = terms.shape[1]
@@ -284,7 +371,8 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
     ratio_exact = float(((got.double() - exact).abs() / tol)
                         .nan_to_num(posinf=float("inf")).max())
     shape_ok = tuple(got.shape) == (G, width, R)
-    ok = shape_ok and ratio <= 1.0 and ratio_exact <= 1.0
+    repeat = torch.equal(got, again)  # deterministic: bit-identical
+    ok = shape_ok and repeat and ratio <= 1.0 and ratio_exact <= 1.0
 
     # the library call: one index_add_ of the (G*K, width) terms into a
     # (G*R, width) buffer (terms, index and layout prepared outside the
@@ -308,7 +396,8 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
         f"{vals.dtype} longest segment {int(top[0])}, top 1% rows hold "
         f"{share:.3f} of the samples; max_abs_err {err:.3e}, err/tol "
         f"{ratio:.3f} vs plain, {ratio_exact:.3f} vs float64 (tol "
-        f"4*eps32*sqrt(n)*sum|v| per row); kernel {ms:.4f} ms plain "
+        f"4*eps32*sqrt(n)*sum|v| per row), two calls bit-identical {repeat}; "
+        f"kernel {ms:.4f} ms plain "
         f"{plain_ms:.4f} ms index_add_ {lib_ms:.4f} ms bound {b_ms:.4f} ms "
         f"({b_by}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
@@ -699,12 +788,22 @@ def main() -> None:
     lib_path = _build.build_library()
     _build.library()
     log(f"build: {lib_path.name} in {time.perf_counter() - tic:.1f} s")
+    ptxas_report(lib_path)
 
     # ---- 2. the segment sums on synthetic keys
     for case in bench_segment_cases(dev):
         check_segment_sum(*case, layout="ts")
     for case in rows_segment_cases(dev):
         check_segment_sum(*case, layout="rows")
+    skew = {}
+    for layout in ("ts", "tsf"):
+        uni, hot = (check_segment_sum(*case, layout=layout)
+                    for case in skew_segment_cases(dev, layout))
+        log(f"segment_sum[{layout}] 700,000 samples on one row: "
+            f"{hot['ms'] / uni['ms']:.2f}x the time on uniform keys")
+        skew[layout] = {"one_row_700000_ms": hot["ms"],
+                        "uniform_917504_ms": uni["ms"]}
+        check_out_of_range(dev, layout)
 
     # ---- 3. the bench path
     cfg = bench_config()
@@ -810,7 +909,8 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         entry("segment_sum_sorted", "segment_sum", "segment_sum.cu",
-              "virus_nerf_tpu/ops/segment_sum_pallas.py:231", ["bench"], b1),
+              "virus_nerf_tpu/ops/segment_sum_pallas.py:231", ["bench"], b1,
+              **skew["ts"]),
         entry("fused_adam", "fused_adam", "fused_adam.cu",
               "virus_nerf_tpu/ops/fused_adam.py:37", list(paths),
               adam[xor_table_n], bf16_params=adam_bf16),
@@ -820,7 +920,8 @@ def main() -> None:
         entry("group_segment_sum_tsf_sorted", "segment_sum_factors",
               "segment_sum_factors.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:333", ["slabs"],
-              b4[torch.bfloat16], float32_factors=b4[torch.float32]),
+              b4[torch.bfloat16], float32_factors=b4[torch.float32],
+              **skew["tsf"]),
         entry("widen_slabs_group", "widen_slabs", "widen_slabs.cu",
               "virus_nerf_tpu/ops/widen_pack_pallas.py:90", ["slabs"], b5),
     ]}), flush=True)

@@ -15,7 +15,8 @@ from virus_nerf_tpu_torch.ops.fused_adam import (
     adam_update_,
     adam_update_plain_,
 )
-from virus_nerf_tpu_torch.ops import hash_encoder, widen
+from virus_nerf_tpu_torch.ops import _build, hash_encoder, widen
+from virus_nerf_tpu_torch.ops import segment_sum as tss
 from virus_nerf_tpu_torch.ops.segment_sum import (
     factor_products,
     group_segment_sum_t_sorted,
@@ -34,6 +35,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _one_row_keys(gen, dev, K=917504, hot=700000, R=524288):
+    """(1, K) sorted keys of which ``hot`` fall on one row."""
+    k = torch.randint(0, R, (1, K), generator=gen, device=dev)
+    k[0, :hot] = R // 3
+    return torch.sort(k, dim=1).values
+
+
+def _out_of_range_keys(gen, dev, R):
+    """(2, 30000) sorted keys, none in [0, R)."""
+    k = torch.cat([torch.randint(-5000, 0, (2, 10000), generator=gen, device=dev),
+                   torch.randint(R, R + 900, (2, 20000), generator=gen, device=dev)],
+                  dim=1)
+    return torch.sort(k, dim=1).values
+
+
 def _segment_case(name, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -48,28 +64,66 @@ def _segment_case(name, dev):
         k, R = keys(1, 4096, 0, 9264), 9264
     elif name == "odd_blocks":
         k, R = keys(3, 16384, 0, 3 * 2048), 3 * 2048
+    elif name == "one_row":  # one row holds 700,000 of 917,504 entries
+        k, R = _one_row_keys(gen, dev), 524288
+    elif name == "out_of_range":  # every key outside [0, n_rows)
+        k, R = _out_of_range_keys(gen, dev, 4096), 4096
     else:  # hashed group at the bench slice's shape
         k, R = keys(5, 114688, 0, 524288), 524288
-    VF = 32 if name == "hashed_group" else 16
+    VF = {"hashed_group": 32, "one_row": 32, "out_of_range": 64}.get(name, 16)
     vals = torch.randn((k.shape[0], VF, k.shape[1]), generator=gen, device=dev)
     return vals, k.to(torch.int32).contiguous(), R
 
 
+def _row_tolerance(terms, keys, R):
+    """float64 sums of the (G, V, K) terms and the per-row float32 bound
+    4 * eps32 * sqrt(n) * sum|v| (chip_smoke's), over the keys in range."""
+    ok = (keys >= 0) & (keys < R)
+    k = torch.where(ok, keys, 0)
+    t = terms.double() * ok[:, None]
+    exact = segment_sum_sorted_plain(t, k, R)
+    mag = segment_sum_sorted_plain(t.abs(), k, R)
+    counts = torch.stack([torch.bincount(k[g][ok[g]].long(), minlength=R)
+                          for g in range(keys.shape[0])]).double()
+    return exact, 4 * torch.finfo(torch.float32).eps * counts.sqrt()[:, None] * mag, mag
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["skewed", "padded_rows", "odd_blocks",
-                                  "hashed_group"])
+                                  "hashed_group", "one_row", "out_of_range"])
 def test_segment_sum_kernel_matches_plain(cuda_device, name):
     vals, keys, R = _segment_case(name, cuda_device)
     before = segment_sum_sorted.launches
     got = segment_sum_sorted(vals, keys, R)
-    want = segment_sum_sorted_plain(vals, keys, R)
     torch.cuda.synchronize()
     assert segment_sum_sorted.launches == before + 1
-    assert got.shape == want.shape
-    # float32 sums of a few N(0,1) values per row, in another order (the
-    # plain index_add_ accumulates with atomics on the card)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=0, atol=1e-5)
+    exact, tol, mag = _row_tolerance(vals, keys, R)
+    assert got.shape == exact.shape
+    assert bool(((got.double() - exact).abs() <= tol).all())
+    if name == "one_row":
+        want = segment_sum_sorted_plain(vals, keys, R)
+        assert bool(((want.double() - exact).abs() <= tol).all())
+    elif name != "out_of_range":  # the plain index_add_ takes keys in range
+        want = segment_sum_sorted_plain(vals, keys, R)
+        # float32 sums of a few N(0,1) values per row, in another order
+        # (the plain index_add_ accumulates with atomics on the card)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=1e-5)
+    assert bool((got[mag == 0] == 0).all())  # rows no key hits are 0
+    # deterministic: no atomics
+    assert torch.equal(got, segment_sum_sorted(vals, keys, R))
+
+
+@pytest.mark.cuda
+def test_segment_tiles_constants_match_the_kernels(cuda_device):
+    lib = _build.library()
+    assert (lib.vn_segment_tiles_short_window(), lib.vn_segment_tiles_chunk(),
+            lib.vn_segment_tiles_planes(), lib.vn_segment_tiles_scan_planes()
+            ) == (tss.SHORT_WINDOW, tss.TILE_CHUNK, tss.TILE_PLANES,
+                  tss.SCAN_PLANES)
+    widths = set(tss.KERNEL_WIDTHS) | {8 * F for F in tss.FACTOR_KERNEL_FEATS}
+    for V in sorted(widths):
+        assert lib.vn_segment_tiles_rows(V) == tss.tile_rows(V)
 
 
 @pytest.mark.cuda
@@ -183,31 +237,34 @@ def test_xor_hash_encode_on_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", ["uniform", "skewed", "padded_rows",
-                                  "odd_groups", "hashed_group"])
+                                  "odd_groups", "hashed_group", "one_row",
+                                  "out_of_range"])
 def test_segment_sum_factors_kernel_matches_plain(cuda_device, name, dtype):
-    _, keys, R = _rows_case(name, cuda_device)
-    G, K = keys.shape
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(13)
+    if name == "one_row":  # one row holds 700,000 of 917,504 entries
+        keys, R = _one_row_keys(gen, cuda_device).to(torch.int32), 524288
+    elif name == "out_of_range":  # every key outside [0, n_rows)
+        keys, R = _out_of_range_keys(gen, cuda_device, 4096).to(torch.int32), 4096
+    else:
+        _, keys, R = _rows_case(name, cuda_device)
+    G, K = keys.shape
     wgt = torch.cat([torch.rand((G, 8, K), generator=gen, device=cuda_device),
                      torch.randn((G, 2, K), generator=gen, device=cuda_device)],
                     dim=1).to(dtype)
     before = group_segment_sum_tsf_sorted.launches
     got = group_segment_sum_tsf_sorted(wgt, keys, R, 2)
-    want = group_segment_sum_tsf_sorted_plain(wgt, keys, R, 2)
     V = factor_products(wgt, 2)  # the products as the factor dtype rounds them
-    exact = segment_sum_sorted_plain(V.double(), keys, R)
     torch.cuda.synchronize()
     assert group_segment_sum_tsf_sorted.launches == before + 1
-    assert got.shape == want.shape == (G, 16, R)
+    assert got.shape == (G, 16, R)
     # float32 sums of the same products in another order: within
     # 4 * eps32 * sqrt(n) * sum|v| of the float64 sum of those products
-    counts = torch.stack([torch.bincount(keys[g].long(), minlength=R)
-                          for g in range(G)]).double()
-    mag = segment_sum_sorted_plain(V.abs().double(), keys, R)
-    tol = 4 * torch.finfo(torch.float32).eps * counts.sqrt()[:, None] * mag
+    exact, tol, mag = _row_tolerance(V, keys, R)
     assert bool(((got.double() - exact).abs() <= tol).all())
-    assert bool(((want.double() - exact).abs() <= tol).all())
+    if name != "out_of_range":  # the plain index_add_ takes keys in range
+        want = group_segment_sum_tsf_sorted_plain(wgt, keys, R, 2)
+        assert bool(((want.double() - exact).abs() <= tol).all())
     assert bool((got[mag == 0] == 0).all())  # rows no key hits are 0
     assert torch.equal(got, group_segment_sum_tsf_sorted(wgt, keys, R, 2))
 

@@ -111,8 +111,20 @@ def run_steps(trainer, state, n):
     return (time.perf_counter() - tic) / n
 
 
+# the port's kernels by a part of their device function names (every
+# launch of a call: B1 and B4 run a chunk and a tile launch per call)
+PORT_KERNELS = {
+    "B1 segment_sum_sorted": ("TransposedLoader",),
+    "B2 fused_adam": ("fused_adam_kernel",),
+    "B3 segment_sum_rows": ("RowLoader", "scan_boundary_kernel"),
+    "B4 segment_sum_factors": ("FactorLoader",),
+    "B5 widen_slabs": ("widen_slabs_kernel",),
+}
+
+
 def device_profile(trainer, state, n=8, top=14, trace=None):
-    """Device time per step over n steps, and the top kernels."""
+    """Device time per step over n steps, the top kernels, and the port's
+    kernels (all their launches) per step."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_steps(trainer, state, n)
     ev = prof.key_averages()
@@ -120,6 +132,13 @@ def device_profile(trainer, state, n=8, top=14, trace=None):
     lines = [f"{e.self_device_time_total / 1e3 / n:9.3f} ms/step {e.count / n:7.1f} "
              f"calls/step  {e.key[:100]}"
              for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:top]]
+    for name, parts in PORT_KERNELS.items():
+        sel = [e for e in ev if any(p in e.key for p in parts)]
+        if sel:
+            lines.append(
+                f"{sum(e.self_device_time_total for e in sel) / 1e3 / n:9.3f} "
+                f"ms/step {sum(e.count for e in sel) / n:7.1f} launches/step  "
+                f"port kernel {name}")
     if trace:
         prof.export_chrome_trace(trace)
     return total / 1e3 / n, lines

@@ -1,17 +1,16 @@
-// Chunked segmented sum over a key-sorted stream: the shared core of the
-// row-major segment sum (segment_sum_rows.cu, B3) and the fused factor
-// segment sum (segment_sum_factors.cu, B4).
+// Chunked segmented sum over a key-sorted stream: the core of the row-major
+// segment sum (segment_sum_rows.cu, B3).  B1 and B4 run on the row-tile
+// core of segment_tiles.cuh, which writes each output element once.
 //
 //     out[g, v, r] = sum_{i : keys[g, i] == r} value(g, i)[v],  v < V
 //
 // keys (G, K) int32 sorted ascending per group, out (G, V, n_rows) float32;
 // a row no key hits is 0 and a key outside [0, n_rows) is dropped.  A
-// Loader gives the V float values of stream entry (g, i); it is the only
-// part that differs between the two kernels.
+// Loader gives the V float values of stream entry (g, i).
 //
 // Design: the time does not follow the longest segment (skewed keys put
 // thousands of samples on one row; a one-thread-per-row walk spends its
-// time there, csrc/segment_sum.cu).
+// time there).
 //
 // 0. the output is zeroed (cudaMemsetAsync): rows no key hits stay 0.
 // 1. one warp per chunk of kChunk = 512 stream entries, in 16 steps of 32

@@ -8,96 +8,84 @@
 //     out[g, f, r] = sum_{i : keys[g, i] == r} vals[g, f, i]
 //
 // vals (G, VF, K) float32, keys (G, K) int32 sorted ascending per group,
-// out (G, VF, n_rows) float32.  The hash-encoder backward uses it for the
+// out (G, VF, n_rows) float32; a row no key hits is 0 and a key outside
+// [0, n_rows) is dropped.  The hash-encoder backward uses it for the
 // widened table gradient before the roll fold.
 //
-// Design: one thread per (group g, output row r).  Two binary searches in
-// keys[g] (lower bound of r and of r + 1) give the row's segment; a
-// register accumulator of VF floats walks it and the row is written once.
-// No atomics, so the result is deterministic; a row no key hits writes 0.
-// Keys outside [0, n_rows) fall in no row's segment and are ignored.
+// Design: the row-tile core of segment_tiles.cuh (one CTA per 256 output
+// rows at VF >= 32, 512 below, window from the first launch, shared-memory accumulator, the
+// segmented warp scan, partials of 512-entry chunks for long windows, the
+// tile stored once; deterministic, no atomics, no zero fill).  The loader
+// reads the transposed stream: lane i of a warp loads entry i of each
+// plane of its group of 8, so every load is coalesced and a plane group
+// reads only its own rows of vals (a CTA owns 32 planes: VF = 64 runs two
+// CTAs per tile over blockIdx.z).  The first design ran one thread per
+// output row, which walked its segment alone: on the skewed keys of
+// training (a row of 3,824 samples, the top 1 % of rows holding 70 % of
+// the samples) one thread set the time of its whole block.
 //
-// Two deliberate differences from the TPU kernel:
-// - values are read in float32, not bf16.  The bf16 stream was a TPU
-//   bandwidth choice (segment_sum_pallas.py:61-69); the JAX CPU reference
-//   of the hash backward is float32 (hash_encoder.py:728-731).
-// - a long segment (skewed keys, one row hit by many samples) is summed
-//   by one thread in order: correct, but serial.
+// One deliberate difference from the TPU kernel: values are read in
+// float32, not bf16.  The bf16 stream was a TPU bandwidth choice
+// (segment_sum_pallas.py:61-69); the JAX CPU reference of the hash
+// backward is float32 (hash_encoder.py:728-731).
 //
-// Bound on this card: at the bench slice the hashed group writes
+// Bound on this card: bytes.  At the bench slice the hashed group writes
 // G * VF * n_rows * 4 B = 5 * 32 * 524,288 * 4 B ~ 335 MB of widened
-// gradient and reads only ~73 MB of values and keys, so the output write
-// dominates.  Fusing the 3-step roll fold into the kernel (writing F
-// instead of 8F columns) is the next step, not taken here.
+// gradient and reads ~73 MB of values and keys; the tile store writes each
+// output element once, coalesced.  Fusing the 3-step roll fold into the
+// tile store (F instead of 8F planes) is the next step, not taken here.
 
-#include <cuda_runtime.h>
+#include "segment_tiles.cuh"
 
 namespace {
 
-__device__ __forceinline__ long long lower_bound(const int* __restrict__ keys,
-                                                 long long n, int value) {
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < value) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
 template <int VF>
-__global__ void segment_sum_sorted_kernel(const float* __restrict__ vals,
-                                          const int* __restrict__ keys,
-                                          float* __restrict__ out,
-                                          long long K, int n_rows) {
-  const int g = blockIdx.y;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rows) return;
-  const int* kg = keys + (long long)g * K;
-  const long long lo = lower_bound(kg, K, r);
-  const long long hi = lower_bound(kg, K, r + 1);
-  float acc[VF];
-#pragma unroll
-  for (int f = 0; f < VF; ++f) acc[f] = 0.0f;
-  const float* vg = vals + (long long)g * VF * K;
-  for (long long i = lo; i < hi; ++i) {
-#pragma unroll
-    for (int f = 0; f < VF; ++f) acc[f] += __ldg(vg + f * K + i);
-  }
-  float* og = out + (long long)g * VF * n_rows;
-#pragma unroll
-  for (int f = 0; f < VF; ++f) og[(long long)f * n_rows + r] = acc[f];
-}
+struct TransposedLoader {
+  static constexpr int kWidth = VF;
+  static constexpr int kSlice = tiles::scan_planes(VF);
+  const float* vals;
+  long long K;
 
-template <int VF>
-void launch(const float* vals, const int* keys, float* out, int G,
-            long long K, int n_rows, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const dim3 grid((n_rows + kThreads - 1) / kThreads, G);
-  segment_sum_sorted_kernel<VF>
-      <<<grid, kThreads, 0, stream>>>(vals, keys, out, K, n_rows);
-}
+  __device__ __forceinline__ void operator()(int g, int slice, long long i,
+                                             float* s) const {
+    const float* p = vals + ((long long)g * VF + slice * kSlice) * K + i;
+#pragma unroll
+    for (int v = 0; v < kSlice; ++v) s[v] = __ldg(p + (long long)v * K);
+  }
+};
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// VF without an instantiation; the Python wrapper checks VF first).
+// The core's constants: the wrappers and the CPU emulation of the
+// algorithm read them (ops/segment_sum.py).
+extern "C" int vn_segment_tiles_rows(int V) { return tiles::tile_rows(V); }
+extern "C" int vn_segment_tiles_short_window() { return tiles::kShortWindow; }
+extern "C" int vn_segment_tiles_chunk() { return tiles::kChunk; }
+extern "C" int vn_segment_tiles_planes() { return tiles::kTilePlanes; }
+extern "C" int vn_segment_tiles_scan_planes() { return tiles::kScanPlanes; }
+
+// part: (G, K, VF) float32 scratch; starts: (G, ceil(n_rows / R) + 1)
+// int64 scratch.  Returns the first CUDA error of the two launches
+// (cudaErrorInvalidValue for a VF without an instantiation; the Python
+// wrapper checks VF first).
 extern "C" int vn_segment_sum_sorted(const float* vals, const int* keys,
-                                     float* out, int G, int VF, long long K,
-                                     int n_rows, cudaStream_t stream) {
-  if (G == 0 || n_rows == 0) return cudaSuccess;
+                                     float* out, float* part,
+                                     long long* starts, int G, int VF,
+                                     long long K, int n_rows,
+                                     cudaStream_t stream) {
   switch (VF) {
-    case 1: launch<1>(vals, keys, out, G, K, n_rows, stream); break;
-    case 2: launch<2>(vals, keys, out, G, K, n_rows, stream); break;
-    case 4: launch<4>(vals, keys, out, G, K, n_rows, stream); break;
-    case 8: launch<8>(vals, keys, out, G, K, n_rows, stream); break;
-    case 16: launch<16>(vals, keys, out, G, K, n_rows, stream); break;
-    case 32: launch<32>(vals, keys, out, G, K, n_rows, stream); break;
-    case 64: launch<64>(vals, keys, out, G, K, n_rows, stream); break;
+#define VN_SORTED_CASE(VF_)                                                 \
+  case VF_:                                                                 \
+    return tiles::segment_tiles(TransposedLoader<VF_>{vals, K}, keys, part, \
+                                starts, out, G, K, n_rows, stream);
+    VN_SORTED_CASE(1)
+    VN_SORTED_CASE(2)
+    VN_SORTED_CASE(4)
+    VN_SORTED_CASE(8)
+    VN_SORTED_CASE(16)
+    VN_SORTED_CASE(32)
+    VN_SORTED_CASE(64)
+#undef VN_SORTED_CASE
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }

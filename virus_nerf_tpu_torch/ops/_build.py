@@ -5,13 +5,16 @@ All sources under ``virus_nerf_tpu_torch/csrc/*.cu`` (with the headers
 all started together, then one link::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-         -Xcompiler -fPIC -c -o build/<hash>/<name>.o csrc/<name>.cu   # each
+         -Xcompiler -fPIC -Xptxas -v -c -o build/<hash>/<name>.o \
+         csrc/<name>.cu                                   # each
     nvcc -shared -o build/libvnerf_kernels_<hash>.so build/<hash>/*.o
 
 The library lands in ``build/`` at the repository root (resolved from this
 file, not from the working directory) under a name that carries a hash of
 the sources, headers and flags, so an edited source rebuilds and a stale library is
 never loaded.  No PyTorch header is included: the build takes seconds.
+ptxas's report of each kernel's registers and spills is kept beside the
+library (:func:`ptxas_log`).
 
 The library is bound with ``ctypes``.  Every pointer and the stream pass as
 ``c_void_p`` (an undeclared pointer argument would be cut to 32 bits);
@@ -36,7 +39,7 @@ BUILD_DIR = _PKG_DIR.parent / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -46,16 +49,19 @@ _F = ctypes.c_float
 
 # C signature of every entry point: name -> argtypes (all return int)
 _SIGNATURES = {
-    # vals, keys, out, G, VF, K, n_rows, stream
-    "vn_segment_sum_sorted": (_P, _P, _P, _I, _I, _L, _I, _P),
+    # vals, keys, out, part, starts, G, VF, K, n_rows, stream
+    "vn_segment_sum_sorted": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
+    "vn_segment_tiles_rows": (_I,),
+    "vn_segment_tiles_short_window": (),
+    "vn_segment_tiles_chunk": (),
+    "vn_segment_tiles_planes": (),
+    "vn_segment_tiles_scan_planes": (),
     # vals, keys, out, head_key, tail_key, head_sum, tail_sum, G, F, K,
     # n_rows, stream
     "vn_segment_sum_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
     "vn_segment_sum_rows_chunk": (),
-    # wgt, is_bf16, keys, out, head_key, tail_key, head_sum, tail_sum, G,
-    # F, K, n_rows, stream
-    "vn_segment_sum_factors": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _L,
-                               _I, _P),
+    # wgt, is_bf16, keys, out, part, starts, G, F, K, n_rows, stream
+    "vn_segment_sum_factors": (_P, _I, _P, _P, _P, _P, _I, _I, _L, _I, _P),
     # table, is_bf16, out, row0, size, G, F, corner_offsets, stream
     "vn_widen_slabs": (_P, _I, _P, _L, _I, _I, _I, _P, _P),
     # p, g, mu, nu, n, lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2,
@@ -87,17 +93,19 @@ def _source_hash(sources) -> str:
     return h.hexdigest()[:16]
 
 
-def _run(procs) -> None:
+def _run(procs) -> list:
     """Wait for every started nvcc; raise with the output of the first
-    that failed."""
-    failed = []
+    that failed.  Returns each command's standard error."""
+    failed, logs = [], []
     for cmd, proc in procs:
         stdout, stderr = proc.communicate()
+        logs.append(stderr)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                           f"{stdout}\n{stderr}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def build_library() -> Path:
@@ -121,7 +129,10 @@ def build_library() -> Path:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
             )))
             objs.append(obj)
-        _run(procs)
+        logs = _run(procs)
+        # ptxas -v: registers, shared memory and spills of every kernel
+        ptxas_log(out).write_text("".join(
+            f"== {src.name} ==\n{log}" for src, log in zip(sources, logs)))
         tmp = os.path.join(objdir, out.name)
         cmd = [nvcc, "-shared", "-o", tmp, *objs]
         _run([(cmd, subprocess.Popen(
@@ -129,6 +140,12 @@ def build_library() -> Path:
         ))])
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     return out
+
+
+def ptxas_log(lib_path: Path) -> Path:
+    """The ``-Xptxas -v`` report written beside a built library, one
+    ``== <source> ==`` section per source."""
+    return lib_path.with_suffix(".ptxas.txt")
 
 
 @functools.cache

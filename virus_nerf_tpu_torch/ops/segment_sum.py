@@ -18,6 +18,16 @@ its plain PyTorch version, one ``index_add_``:
   CUDA ``csrc/segment_sum_factors.cu``; the values ``w[c] * g[f]`` are
   formed from the sorted corner weights and gradients inside the kernel;
   the additive hash encoder's ``factors`` backward.
+
+The transposed and factor kernels share the row-tile core
+``csrc/segment_tiles.cuh``: a first launch finds each tile's window of the
+stream and leaves per-run partials of every ``TILE_CHUNK``-entry chunk
+that a long window reaches; then one CTA owns :func:`tile_rows` rows,
+sums its window (at most ``SHORT_WINDOW`` entries) by warp scans into
+shared memory, or joins the partials of a longer one, and stores its tile
+once.  Its constants are below (the C side reports its own:
+``vn_segment_tiles_rows`` and the like); the wrappers allocate the
+scratch (:func:`_tile_scratch`).
 """
 
 from __future__ import annotations
@@ -34,6 +44,29 @@ ROW_KERNEL_WIDTHS = (1, 2, 4, 8)
 # (csrc/segment_sum_factors.cu): those of ``fuse_applicable``
 # (segment_sum_pallas.py:448-451)
 FACTOR_KERNEL_FEATS = (1, 2, 4, 8)
+# the row-tile core (csrc/segment_tiles.cuh): the longest window a CTA
+# scans itself, stream entries per chunk partial, planes per CTA, planes
+# per warp scan, and the accumulator floats and most rows of a CTA
+SHORT_WINDOW = 2048
+TILE_CHUNK = 512
+TILE_PLANES = 32
+SCAN_PLANES = 8
+TILE_FLOATS = 8192
+MAX_TILE_ROWS = 512
+
+
+def tile_rows(V: int) -> int:
+    """Output rows a CTA of the row-tile core owns for V planes."""
+    return min(MAX_TILE_ROWS, TILE_FLOATS // min(V, TILE_PLANES))
+
+
+def _tile_scratch(G: int, K: int, V: int, n_rows: int, device):
+    """Scratch of the row-tile core: the chunk partials (G, K, V) float32,
+    read only where the first launch wrote them, and each tile's first
+    stream entry (G, n_tiles + 1) int64."""
+    n_tiles = -(-n_rows // tile_rows(V))
+    return (torch.empty((G, K, V), dtype=torch.float32, device=device),
+            torch.empty((G, n_tiles + 1), dtype=torch.int64, device=device))
 
 
 def segment_sum_sorted_plain(vals, keys, n_rows: int):
@@ -88,9 +121,10 @@ def _segment_sum_sorted_cuda(vals, keys, n_rows: int):
     if not (vals.is_contiguous() and keys.is_contiguous()):
         raise ValueError("segment_sum_sorted: vals and keys must be contiguous")
     out = torch.empty((G, VF, n_rows), dtype=torch.float32, device=vals.device)
-    lib = _build.library()
-    err = lib.vn_segment_sum_sorted(
-        vals.data_ptr(), keys.data_ptr(), out.data_ptr(), G, VF, K, n_rows,
+    part, starts = _tile_scratch(G, K, VF, n_rows, vals.device)
+    err = _build.library().vn_segment_sum_sorted(
+        vals.data_ptr(), keys.data_ptr(), out.data_ptr(), part.data_ptr(),
+        starts.data_ptr(), G, VF, K, n_rows,
         torch.cuda.current_stream(vals.device).cuda_stream,
     )
     _build.check(err, "vn_segment_sum_sorted")
@@ -103,7 +137,7 @@ def segment_sum_sorted(vals, keys, n_rows: int):
 
     A CUDA tensor launches ``csrc/segment_sum.cu`` (or raises); a CPU
     tensor takes :func:`segment_sum_sorted_plain`.  ``.launches`` counts
-    kernel launches.
+    the calls that launched the kernel (two launches each).
 
     Args:
         vals: (G, VF, K) float32, each group sorted by its key.
@@ -296,18 +330,13 @@ def _group_segment_sum_tsf_sorted_cuda(wgt, sk, n_rows: int, feat_dim: int):
     if not (wgt.is_contiguous() and sk.is_contiguous()):
         raise ValueError("group_segment_sum_tsf_sorted: factors and keys must "
                          "be contiguous")
-    lib = _build.library()
-    n_chunks = max(1, -(-K // lib.vn_segment_sum_rows_chunk()))
     dev, V = wgt.device, 8 * feat_dim
     out = torch.empty((G, V, n_rows), dtype=torch.float32, device=dev)
-    # per chunk: the keys and sums of its first and last run
-    bkeys = torch.empty((2, G, n_chunks), dtype=torch.int32, device=dev)
-    bsums = torch.empty((2, G, n_chunks, V), dtype=torch.float32, device=dev)
-    err = lib.vn_segment_sum_factors(
+    part, starts = _tile_scratch(G, K, V, n_rows, dev)
+    err = _build.library().vn_segment_sum_factors(
         wgt.data_ptr(), int(wgt.dtype == torch.bfloat16), sk.data_ptr(),
-        out.data_ptr(), bkeys[0].data_ptr(), bkeys[1].data_ptr(),
-        bsums[0].data_ptr(), bsums[1].data_ptr(), G, feat_dim, K, n_rows,
-        torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), part.data_ptr(), starts.data_ptr(), G, feat_dim, K,
+        n_rows, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "vn_segment_sum_factors")
     group_segment_sum_tsf_sorted.launches += 1
@@ -320,7 +349,8 @@ def group_segment_sum_tsf_sorted(wgt, sk, n_rows: int, feat_dim: int):
 
     A CUDA tensor launches ``csrc/segment_sum_factors.cu`` (or raises); a
     CPU tensor takes :func:`group_segment_sum_tsf_sorted_plain`.
-    ``.launches`` counts kernel launches.
+    ``.launches`` counts the calls that launched the kernel (two launches
+    each).
 
     Args:
         wgt: (G, 8 + F, K) float32 or bf16 factors, each group sorted by
