@@ -9,22 +9,25 @@ Phases, each printed as it finishes; any failure exits non-zero:
 2. hold each kernel against its plain PyTorch version (and the segment sums
    against a float64 sum; each segment sum also against its own second call,
    bit for bit) on the card and time them (CUDA events, in turns
-   kernel/plain/library/library/plain/kernel): the transposed segment sum
+   kernel/plain/library/library/plain/kernel; a segment sum's library call
+   is a zero fill of its output plus one ``index_add_``, the same
+   function): the transposed segment sum
    (B1) at the kernel-CI cases of bench.py, the row-major segment sum (B3)
    on uniform, skewed, padded-row and odd-group keys, B1 and the factor
    segment sum (B4, bf16, F = 2) on 917,504 entries over 524,288 rows with
    700,000 on one row and on uniform keys, and B1 and B4 with every key
    outside [0, n_rows) (all 0); ptxas's registers and spills of B1 and B4
-   are printed after the build;
+   are printed after the build, as are B2's and B5's;
 3. the bench path: ``Trainer`` at the bench configuration (bench.py:311-348:
    synthetic scene 16 x 160x120, 4096 rays, 8 x F=4 additive hash levels of
    2^19 rows, 128^3 VIRUS grid updated every 8 steps, S=128, budget
    4096*28) for 48 steps from a seeded random init: finite, falling loss;
-   B1 and B2 launched on the path;
+   B1 and B2 launched on the path, B2 once a step for all leaves;
 4. B1 against its plain version, and timed, on the two streams of the hash
    backward at the positions of the bench path's last step;
 5. fused Adam (B2) against its plain version at 2^21 elements and at both
-   hash tables' sizes, and on bf16 parameters at the 16 x 2 table's size;
+   hash tables' sizes, and on bf16 parameters at the 16 x 2 table's size
+   (library call: ``torch._fused_adam_`` on the same leaves);
 6. one grid update + train step of a small config on the card against the
    same step on the CPU (the plain versions), for each hash variant;
 7. the XOR path: ``python -m virus_nerf_tpu_torch.quality_run --hash-variant
@@ -33,7 +36,7 @@ Phases, each printed as it finishes; any failure exits non-zero:
    third image held out; the bench's batch, march, budget and grid) for 32
    steps from a seeded init, then ``Evaluator.evaluate`` on the 8 held-out
    images: finite, falling loss, finite NND of the NeRF/ToF/USS scans
-   against the GT scan; B2 and B3 launched on the path;
+   against the GT scan; B2 and B3 launched on the path, B2 once a step;
 8. B3 against its plain version and a float64 sum, and timed, on the two
    streams of the XOR backward at the positions of the XOR path's last
    step (the merged dense levels and the hashed group of G = 10);
@@ -41,11 +44,14 @@ Phases, each printed as it finishes; any failure exits non-zero:
    --hash-forward slabs --hash-backward factors`` (the JAX package's own
    16 x F=2 additive layout: widened-slab forward, fused factor-stream
    backward, float32) for 32 steps, then the evaluation, checked as in 7;
-   B2, B4 and B5 launched on the path;
+   B2, B4 and B5 launched on the path, B2 once a step; B2 on the six
+   leaves of the trained model (the table and five MLP weights) in one
+   call, with the float32 table and with a bf16 one, against its plain
+   version and ``torch._fused_adam_`` over the same leaves;
 10. B4 against its plain version and a float64 sum, and timed, on the bf16
     and float32 factor streams at the positions of the slabs path's last
     step; B5 bit-exact against its plain version, and timed, on the
-    trained table's bf16 slab groups;
+    trained table's bf16 slab groups, each and per forward;
 11. one small-config step on the card against the CPU for slabs+factors
     and for the ``mixed`` and ``bfloat16`` compute modes.
 
@@ -105,6 +111,25 @@ def time_turns(fns, iters: int = 10):
     first = [one(fn) for fn in fns]
     second = [one(fn) for fn in reversed(fns)][::-1]
     return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+def device_ms(fn, part: str, iters: int = 10):
+    """Device ms per launch of the kernels whose name holds ``part``, from
+    ``torch.profiler`` over ``iters`` calls of ``fn`` after a warm-up: the
+    kernel's own time, without the host's time between launches, which
+    CUDA events around a short kernel also count.  Per recorded launch, as
+    the profiler may drop a launch's record; NaN if it kept none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if part in e.key]
+    n = sum(e.count for e in ev)
+    return sum(e.self_device_time_total for e in ev) / 1e3 / n if n else float("nan")
 
 
 # ------------------------------------------------------ segment sums (B1, B3)
@@ -194,7 +219,8 @@ def check_out_of_range(dev, layout):
         fail(f"segment_sum[{layout}] with every key out of range")
 
 
-def ptxas_report(lib_path, sources=("segment_sum.cu", "segment_sum_factors.cu")):
+def ptxas_report(lib_path, sources=("segment_sum.cu", "segment_sum_factors.cu",
+                                    "fused_adam.cu", "widen_slabs.cu")):
     """Registers and spills of every kernel of ``sources``, from the
     ``-Xptxas -v`` report of the build."""
     from virus_nerf_tpu_torch.ops import _build
@@ -374,16 +400,17 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
     repeat = torch.equal(got, again)  # deterministic: bit-identical
     ok = shape_ok and repeat and ratio <= 1.0 and ratio_exact <= 1.0
 
-    # the library call: one index_add_ of the (G*K, width) terms into a
-    # (G*R, width) buffer (terms, index and layout prepared outside the
-    # timing; for the factor layout the products are materialized there)
+    # the library call, the same function as the kernel: a zero fill of
+    # the (G*R, width) output and one index_add_ of the (G*K, width) terms
+    # into it (terms, index and layout prepared outside the timing; for the
+    # factor layout the products are materialized there)
     src = terms.float().transpose(1, 2).reshape(G * K, width).contiguous()
     idx = (keys.long() + R * torch.arange(G, device=keys.device)[:, None]).reshape(-1)
-    buf = torch.zeros((G * R, width), device=vals.device)
     ms, plain_ms, lib_ms = time_turns([
         lambda: kernel(vals, keys, R),
         lambda: plain(vals, keys, R),
-        lambda: buf.index_add_(0, idx, src),
+        lambda: torch.zeros((G * R, width), device=vals.device).index_add_(
+            0, idx, src),
     ])
     # each input read once, each output written once; one add per term
     # (and one multiply for a factor product)
@@ -398,7 +425,7 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
         f"{ratio:.3f} vs plain, {ratio_exact:.3f} vs float64 (tol "
         f"4*eps32*sqrt(n)*sum|v| per row), two calls bit-identical {repeat}; "
         f"kernel {ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms index_add_ {lib_ms:.4f} ms bound {b_ms:.4f} ms "
+        f"{plain_ms:.4f} ms zeros+index_add_ {lib_ms:.4f} ms bound {b_ms:.4f} ms "
         f"({b_by}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"segment_sum[{layout}] {name} disagrees with its plain version")
@@ -410,7 +437,8 @@ def sum_results(results):
     """One kernel entry over several calls (one step's calls): times and
     bounds add, the error is the largest."""
     out = {k: sum(r[k] for r in results)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
+           if k in results[0]}
     out["max_abs_err"] = max(r["max_abs_err"] for r in results)
     out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
                                      for r in results) else "operations"
@@ -453,17 +481,19 @@ def check_widen(name, table, row0, size, G, offs):
         lambda: widen_slabs_group_plain(*args),
         lambda: table[idx].to(torch.bfloat16),
     ])
+    dev_ms = device_ms(lambda: widen_slabs_group(*args), "widen_slabs_kernel")
     F = table.shape[1]
     # the group's table rows read once, the bf16 slabs written once
     b_ms, b_by = bound_ms(G * size * F * (table.element_size() + 8 * 2), 0)
     log(f"widen_slabs {name}: G={G} size={size} F={F} {table.dtype} table; "
-        f"bit-exact {ok}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"bit-exact {ok}; kernel {ms:.4f} ms (device {dev_ms:.4f}) plain {plain_ms:.4f} ms "
         f"table[idx].to(bf16) {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
         f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"widen_slabs {name} disagrees with its plain version")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 # ------------------------------------------------------------ fused Adam (B2)
@@ -477,66 +507,88 @@ def bf16_ulp_distance(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-def check_adam(dev, sizes, dtype=torch.float32):
-    """Fused Adam against its plain version at each size, on ``dtype``
-    parameters (float32 moments and gradient); returns {n: result dict}.
-    The library call is PyTorch's fused Adam on one float32 tensor; for
-    bf16 parameters it would keep bf16 moments, another function, so it is
-    not timed (library_ms None)."""
+def check_adam(dev, name, leaves):
+    """Fused Adam on the leaves ``[(shape, p dtype)]`` (float32 moments and
+    gradients), all in one ``adam_update_leaves_`` call, against its plain
+    version leaf by leaf, and timed.  The library call is PyTorch's fused
+    Adam over the same leaf list; with a bf16 p it would keep bf16
+    moments, another function, so it is not timed (library_ms None).
+    Returns a result dict."""
     from virus_nerf_tpu_torch.ops.fused_adam import (
         adam_scalars,
-        adam_update_,
-        adam_update_plain_,
+        adam_update_leaves_,
+        adam_update_leaves_plain_,
     )
 
-    out = {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    bf16 = dtype == torch.bfloat16
-    for n in sizes:
-        p, g = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
-        p = p.to(dtype)
-        mu = torch.randn(n, generator=gen, device=dev) * 0.1
-        nu = torch.rand(n, generator=gen, device=dev) * 0.01
-        args = adam_scalars(1e-2, 0.9, 0.999, 3) + (0.9, 0.999, 1e-15)
-        a = [x.clone() for x in (p, mu, nu)]
-        b = [x.clone() for x in (p, mu, nu)]
-        c = [x.clone() for x in (p, mu, nu)]
-        adam_update_(a[0], g, a[1], a[2], *args)
-        adam_update_plain_(b[0], g, b[1], b[2], *args)
-        torch.cuda.synchronize()
-        err = max(float((x.float() - y.float()).abs().max())
-                  for x, y in zip(a, b))
-        # the bench's gate for the TPU kernel (bench.py:276): 1e-6; a bf16
-        # p rounds a float32 sum that may be an ulp apart: one bf16 ulp
-        moments_err = max(float((x - y).abs().max()) for x, y in zip(a[1:], b[1:]))
-        p_ulps = int(bf16_ulp_distance(a[0], b[0]).max()) if bf16 else 0
-        ok = moments_err <= 1e-6 and (p_ulps <= 1 if bf16 else err <= 1e-6)
-        step = torch.tensor(3.0, device=dev)
-        fns = [lambda: adam_update_(a[0], g, a[1], a[2], *args),
-               lambda: adam_update_plain_(b[0], g, b[1], b[2], *args)]
-        if not bf16:
-            # the library call: PyTorch's fused Adam on one tensor
-            fns.append(lambda: torch._fused_adam_(
-                [c[0]], [g], [c[1]], [c[2]], [], [step], lr=1e-2, beta1=0.9,
-                beta2=0.999, weight_decay=0.0, eps=1e-15, amsgrad=False,
-                maximize=False))
-        ms, plain_ms, *lib = time_turns(fns)
-        lib_ms = lib[0] if lib else None
-        # reads p, g, mu, nu and writes p, mu, nu; ~12 float32 operations
-        # per element
-        b_ms, b_by = bound_ms((2 * p.element_size() + 5 * 4.0) * n, 12.0 * n)
-        p_note = (f"p at most {p_ulps} bf16 ulp apart, tol 1" if bf16
-                  else "tol 1e-6")
-        log(f"fused_adam n={n} {dtype} p: max_abs_err={err:.3e} (moments "
-            f"{moments_err:.3e}, tol 1e-6; {p_note}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms torch._fused_adam_ "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms bound "
-            f"{b_ms:.4f} ms ({b_by}) {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail(f"fused_adam n={n} {dtype} disagrees with its plain version")
-        out[n] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
-    return out
+    made = []
+    for shape, dtype in leaves:
+        p, g = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+        mu = torch.randn(shape, generator=gen, device=dev) * 0.1
+        nu = torch.rand(shape, generator=gen, device=dev) * 0.01
+        made.append((p.to(dtype), g, mu, nu))
+    args = adam_scalars(1e-2, 0.9, 0.999, 3) + (0.9, 0.999, 1e-15)
+    # kernel, plain and library copies of (p, g, mu, nu)
+    a, b, c = ([(p.clone(), g, mu.clone(), nu.clone()) for p, g, mu, nu in made]
+               for _ in range(3))
+    adam_update_leaves_(a, *args)
+    adam_update_leaves_plain_(b, *args)
+    torch.cuda.synchronize()
+    err = moments_err = 0.0
+    p_ulps = 0
+    for (pa, _, ma, va), (pb, _, mb, vb) in zip(a, b):
+        moments_err = max(moments_err, float((ma - mb).abs().max()),
+                          float((va - vb).abs().max()))
+        err = max(err, moments_err, float((pa.float() - pb.float()).abs().max()))
+        if pa.dtype == torch.bfloat16:
+            p_ulps = max(p_ulps, int(bf16_ulp_distance(pa, pb).max()))
+    # the bench's gate for the TPU kernel (bench.py:276): 1e-6; a bf16 p
+    # rounds a float32 sum that may be an ulp apart: one bf16 ulp
+    f32_err = max([float((pa - pb).abs().max()) for (pa, *_), (pb, *_) in zip(a, b)
+                   if pa.dtype == torch.float32] + [0.0])
+    ok = moments_err <= 1e-6 and f32_err <= 1e-6 and p_ulps <= 1
+    fns = [lambda: adam_update_leaves_(a, *args),
+           lambda: adam_update_leaves_plain_(b, *args)]
+    bf16 = any(dtype == torch.bfloat16 for _, dtype in leaves)
+    if not bf16:
+        # the library call: PyTorch's fused Adam over the same leaves
+        steps = [torch.tensor(3.0, device=dev) for _ in c]
+        fns.append(lambda: torch._fused_adam_(
+            [x[0] for x in c], [x[1] for x in c], [x[2] for x in c],
+            [x[3] for x in c], [], steps, lr=1e-2, beta1=0.9, beta2=0.999,
+            weight_decay=0.0, eps=1e-15, amsgrad=False, maximize=False))
+    ms, plain_ms, *lib = time_turns(fns)
+    lib_ms = lib[0] if lib else None
+    dev_ms = device_ms(lambda: adam_update_leaves_(a, *args), "fused_adam_kernel")
+    # reads p, g, mu, nu and writes p, mu, nu; ~12 float32 operations
+    # per element
+    n = sum(x[0].numel() for x in made)
+    n_bytes = sum((2 * x[0].element_size() + 5 * 4.0) * x[0].numel() for x in made)
+    b_ms, b_by = bound_ms(n_bytes, 12.0 * n)
+    log(f"fused_adam {name}: {len(leaves)} leaves, {n} elements, "
+        f"{'bf16 and float32' if bf16 else 'float32'} p, one call: max_abs_err "
+        f"{err:.3e} (moments {moments_err:.3e}, float32 p {f32_err:.3e}, tol "
+        f"1e-6; bf16 p at most {p_ulps} ulp apart, tol 1) kernel {ms:.4f} ms "
+        f"(device {dev_ms:.4f}) "
+        f"plain {plain_ms:.4f} ms torch._fused_adam_ "
+        f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms bound {b_ms:.4f} ms "
+        f"({b_by}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"fused_adam {name} disagrees with its plain version")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def check_adam_per_step(name, launches, steps):
+    """B2 launches once a step for every leaf on the card: one launch per
+    optimizer step of the path, no plain small-leaf update."""
+    n = launches["fused_adam"]
+    log(f"{name}: fused_adam launches {n} over {steps} steps ({n / steps:g} "
+        f"a step, all leaves)")
+    if n != steps:
+        fail(f"{name}: {n} fused_adam launches over {steps} steps, want one a step")
 
 
 # ------------------------------------------------------- small reference
@@ -768,7 +820,7 @@ def main() -> None:
 
     from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
     from virus_nerf_tpu_torch.ops import _build
-    from virus_nerf_tpu_torch.ops.fused_adam import adam_update_
+    from virus_nerf_tpu_torch.ops.fused_adam import adam_update_leaves_
     from virus_nerf_tpu_torch.ops.hash_encoder import HashGridSpec
     from virus_nerf_tpu_torch.ops.segment_sum import (
         group_segment_sum_t_sorted,
@@ -778,7 +830,7 @@ def main() -> None:
     from virus_nerf_tpu_torch.ops.widen import widen_slabs_group
     from virus_nerf_tpu_torch.training.trainer import Trainer
 
-    wrappers = {"segment_sum": segment_sum_sorted, "fused_adam": adam_update_,
+    wrappers = {"segment_sum": segment_sum_sorted, "fused_adam": adam_update_leaves_,
                 "segment_sum_rows": group_segment_sum_t_sorted,
                 "segment_sum_factors": group_segment_sum_tsf_sorted,
                 "widen_slabs": widen_slabs_group}
@@ -833,6 +885,7 @@ def main() -> None:
     log(f"bench path: kernel launches {bench_launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_launched("bench path", bench_launches, ("segment_sum", "fused_adam"))
+    check_adam_per_step("bench path", bench_launches, 48)
 
     # ---- 4. B1 at the keys of the bench path's last step
     slice_cases = slice_segment_cases(state.model, seen["xyz"], dev)
@@ -845,8 +898,9 @@ def main() -> None:
     # ---- 5. fused Adam at 2^21 and at both tables' sizes; bf16 parameters
     xor_table_n = HashGridSpec.create(levels=16, feat_dim=2, max_res=1024,
                                       max_params=2**19).total_params
-    adam = check_adam(dev, (1 << 21, bench_table_n, xor_table_n))
-    adam_bf16 = check_adam(dev, (xor_table_n,), torch.bfloat16)[xor_table_n]
+    adam = {n: check_adam(dev, f"n={n}", [((n,), torch.float32)])
+            for n in (1 << 21, bench_table_n, xor_table_n)}
+    adam_bf16 = check_adam(dev, f"n={xor_table_n}", [((xor_table_n,), torch.bfloat16)])
 
     # ---- 6. small configs on the card against the CPU
     reference_step(dev, "additive")
@@ -858,6 +912,7 @@ def main() -> None:
     _, _, state, xor_launches, xyz = run_quality_path(
         "XOR path", ["--hash-variant", "xor", *wide], wrappers, card)
     check_launched("XOR path", xor_launches, ("segment_sum_rows", "fused_adam"))
+    check_adam_per_step("XOR path", xor_launches, 32)
 
     # ---- 8. B3 at the keys of the XOR path's last step
     xor_cases = xor_segment_cases(state.model, xyz, dev)
@@ -873,6 +928,14 @@ def main() -> None:
                        *wide], wrappers, card)
     check_launched("slabs path", slabs_launches,
                    ("segment_sum_factors", "widen_slabs", "fused_adam"))
+    check_adam_per_step("slabs path", slabs_launches, 32)
+    # B2 on every leaf of the slabs model in one launch (the table and the
+    # five MLP weights), with a float32 table and with the bfloat16 mode's
+    # bf16 one
+    leaves = [(tuple(q.shape), q.dtype) for q in state.model.parameters()]
+    adam_leaves = check_adam(dev, "slabs model", leaves)
+    adam_leaves_bf16 = check_adam(dev, "slabs model, bf16 table",
+                                  [(leaves[0][0], torch.bfloat16), *leaves[1:]])
 
     # ---- 10. B4 at the keys of the slabs path's last step (the route's
     # bf16 factors, and float32), B5 on the trained table
@@ -884,7 +947,11 @@ def main() -> None:
             fail(f"unexpected factor streams {[c[0] for c in cases]}")
         b4[dtype] = sum_results([check_segment_sum(*case, layout="tsf")
                                  for case in cases])
-    b5 = sum_results([check_widen(*case) for case in slab_group_cases(state.model)])
+    b5_groups = {case[0]: check_widen(*case) for case in slab_group_cases(state.model)}
+    b5 = sum_results(list(b5_groups.values()))
+    log(f"widen_slabs per forward ({len(b5_groups)} groups): kernel "
+        f"{b5['ms']:.4f} ms (device {b5['device_ms']:.4f}) plain {b5['plain_ms']:.4f} ms table[idx].to(bf16) "
+        f"{b5['library_ms']:.4f} ms bound {b5['bound_ms']:.4f} ms")
     del state, xyz
     torch.cuda.empty_cache()
 
@@ -913,7 +980,10 @@ def main() -> None:
               **skew["ts"]),
         entry("fused_adam", "fused_adam", "fused_adam.cu",
               "virus_nerf_tpu/ops/fused_adam.py:37", list(paths),
-              adam[xor_table_n], bf16_params=adam_bf16),
+              adam[xor_table_n], bf16_params=adam_bf16,
+              all_leaves=adam_leaves, all_leaves_bf16_table=adam_leaves_bf16,
+              launches_per_step={p: c["fused_adam"] / n for (p, c), n in
+                                 zip(paths.items(), (48, 32, 32))}),
         entry("group_segment_sum_t_sorted", "segment_sum_rows",
               "segment_sum_rows.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:101", ["xor"], b3),
@@ -923,7 +993,9 @@ def main() -> None:
               b4[torch.bfloat16], float32_factors=b4[torch.float32],
               **skew["tsf"]),
         entry("widen_slabs_group", "widen_slabs", "widen_slabs.cu",
-              "virus_nerf_tpu/ops/widen_pack_pallas.py:90", ["slabs"], b5),
+              "virus_nerf_tpu/ops/widen_pack_pallas.py:90", ["slabs"], b5,
+              groups_ms={k: v["ms"] for k, v in b5_groups.items()},
+              groups_device_ms={k: v["device_ms"] for k, v in b5_groups.items()}),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

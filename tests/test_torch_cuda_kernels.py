@@ -11,8 +11,12 @@ import pytest
 import torch
 
 from virus_nerf_tpu_torch.ops.fused_adam import (
+    ADAM_CHUNK,
+    ADAM_MAX_LEAVES,
+    FusedAdam,
     adam_scalars,
     adam_update_,
+    adam_update_leaves_,
     adam_update_plain_,
 )
 from virus_nerf_tpu_torch.ops import _build, hash_encoder, widen
@@ -145,11 +149,11 @@ def test_fused_adam_kernel_matches_plain(cuda_device, n):
     args = adam_scalars(1e-2, 0.9, 0.999, 5) + (0.9, 0.999, 1e-15)
     a = [x.clone() for x in (p, mu, nu)]
     b = [x.clone() for x in (p, mu, nu)]
-    before = adam_update_.launches
+    before = adam_update_leaves_.launches
     adam_update_(a[0], g, a[1], a[2], *args)
     adam_update_plain_(b[0], g, b[1], b[2], *args)
     torch.cuda.synchronize()
-    assert adam_update_.launches == before + 1
+    assert adam_update_leaves_.launches == before + 1
     for x, y in zip(a, b):
         # the same float32 operations in the same order, an ulp apart at
         # most (PyTorch divides by a host scalar as a reciprocal multiply);
@@ -309,11 +313,11 @@ def test_fused_adam_kernel_on_bf16_parameters(cuda_device):
     args = adam_scalars(1e-2, 0.9, 0.999, 5) + (0.9, 0.999, 1e-15)
     a = [x.clone() for x in (p, mu, nu)]
     b = [x.clone() for x in (p, mu, nu)]
-    before = adam_update_.launches
+    before = adam_update_leaves_.launches
     adam_update_(a[0], g, a[1], a[2], *args)
     adam_update_plain_(b[0], g, b[1], b[2], *args)
     torch.cuda.synchronize()
-    assert adam_update_.launches == before + 1
+    assert adam_update_leaves_.launches == before + 1
     assert a[0].dtype == torch.bfloat16
     # the moments as for float32; p rounds a float32 sum that may be an ulp
     # apart to bf16, so the two may be neighbouring bf16 values, no further
@@ -321,11 +325,124 @@ def test_fused_adam_kernel_on_bf16_parameters(cuda_device):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=0,
                                    atol=1e-6)
 
+    assert _bf16_ulps(a[0], b[0]) <= 1
+
+
+def _bf16_ulps(a, b):
+    """The most bf16 values between a and b, elementwise."""
     def ordered(x):  # bf16 bit patterns in the order of the values
-        i = x.view(torch.int16).int()
+        i = x.contiguous().view(torch.int16).int()
         return torch.where(i < 0, -(i & 0x7FFF), i)
 
-    assert int((ordered(a[0]) - ordered(b[0])).abs().max()) <= 1
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_leaves", [9, ADAM_MAX_LEAVES + 2])
+def test_fused_adam_leaves_in_one_launch(cuda_device, n_leaves):
+    # lengths 1, 3, 4, 1023, 2^20 + 5 and more; bf16 and float32 p in one
+    # launch; leaves viewed from a misaligned start (scalar head), and one
+    # whose arrays are out of phase (scalar chunks); one launch per
+    # ADAM_MAX_LEAVES leaves
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(16)
+    lengths = [1, 3, 4, 1023, (1 << 20) + 5, 2 * ADAM_CHUNK + 3, 5000, 4099, 64]
+    lengths = (lengths * 3)[:n_leaves]
+
+    def arr(n, start=0, scale=1.0, dtype=torch.float32):
+        x = torch.randn(n + start, generator=gen, device=cuda_device) * scale
+        return x.to(dtype)[start:]
+
+    leaves = []
+    for k, n in enumerate(lengths):
+        start = 1 if k % 3 == 1 else 0  # a view one element in
+        p = arr(n, start, dtype=torch.bfloat16 if k % 2 else torch.float32)
+        # leaf 7: mu one element further in than the rest
+        mu = arr(n, start + (k == 7), 0.1)
+        leaves.append((p, arr(n, start), mu, arr(n, start).abs() * 0.01))
+    want = [tuple(x.clone() for x in leaf) for leaf in leaves]
+    args = adam_scalars(1e-2, 0.9, 0.999, 4) + (0.9, 0.999, 1e-15)
+    before = adam_update_leaves_.launches
+    adam_update_leaves_(leaves, *args)
+    for p, g, mu, nu in want:
+        adam_update_plain_(p, g, mu, nu, *args)
+    torch.cuda.synchronize()
+    assert adam_update_leaves_.launches == before + -(-n_leaves // ADAM_MAX_LEAVES)
+    for (p, _, mu, nu), (wp, _, wmu, wnu) in zip(leaves, want):
+        # moments and a float32 p within 1e-6 (an ulp); a bf16 p within one
+        # bf16 ulp (it rounds a float32 sum that may be an ulp apart)
+        for x, y in ((mu, wmu), (nu, wnu)):
+            np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=0, atol=1e-6)
+        if p.dtype == torch.float32:
+            np.testing.assert_allclose(p.cpu().numpy(), wp.cpu().numpy(), rtol=0, atol=1e-6)
+        else:
+            assert _bf16_ulps(p, wp) <= 1
+
+
+@pytest.mark.cuda
+def test_fused_adam_step_is_one_launch(cuda_device):
+    # FusedAdam on the card: one launch a step for a table and small
+    # weights, each within the tolerances of the plain version
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(17)
+    shapes = [(5000, 2), (64, 32), (16, 64), (3, 64)]
+    ps = [torch.nn.Parameter(torch.randn(s, generator=gen, device=cuda_device))
+          for s in shapes]
+    ref = [p.detach().clone() for p in ps]
+    mus = [torch.zeros_like(p) for p in ref]
+    nus = [torch.zeros_like(p) for p in ref]
+    opt = FusedAdam(ps, lr=1e-2, eps=1e-15)
+    before = adam_update_leaves_.launches
+    for step in range(1, 4):
+        grads = [torch.randn(s, generator=gen, device=cuda_device) for s in shapes]
+        for p, g in zip(ps, grads):
+            p.grad = g
+        opt.step()
+        args = adam_scalars(1e-2, 0.9, 0.999, step) + (0.9, 0.999, 1e-15)
+        for r, g, m, v in zip(ref, grads, mus, nus):
+            adam_update_plain_(r, g, m, v, *args)
+    torch.cuda.synchronize()
+    assert adam_update_leaves_.launches == before + 3
+    for p, r in zip(ps, ref):
+        np.testing.assert_allclose(p.detach().cpu().numpy(), r.cpu().numpy(),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_adam_and_widen_constants_match_the_kernels(cuda_device):
+    lib = _build.library()
+    assert (lib.vn_fused_adam_max_leaves(), lib.vn_fused_adam_chunk()) == (
+        ADAM_MAX_LEAVES, ADAM_CHUNK)
+    assert lib.vn_widen_plane() == widen.WIDEN_PLANE
+    for F in widen.WIDEN_KERNEL_FEATS:
+        assert lib.vn_widen_tile_rows(F) == widen.widen_tile_rows(F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+def test_widen_slabs_kernel_ragged_tiles_and_wrap(cuda_device, F, dtype):
+    # a size that is not a multiple of the tile rows, offsets that wrap, and
+    # tables viewed from a row that leaves the 16-byte phase off 0
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(18)
+    size, G, row0 = 3 * widen.widen_tile_rows(F) + 37, 3, 11
+    offs = [(1 * (c & 1) + (size // 3 + 1) * (c >> 1 & 1) + (size - 2) * (c >> 2 & 1))
+            % size for c in range(8)]
+    base = (torch.randn((row0 + G * size + 8, F), generator=gen, device=cuda_device)
+            * 100).to(dtype)
+    tables = [base, base[1:], base[3:]]  # row views: other 16-byte phases
+    if F > 1:  # a view one element in: not a multiple of F (copied first)
+        flat = base.reshape(-1)
+        tables.append(flat[1:1 + (base.shape[0] - 1) * F].view(-1, F))
+    for skip, table in enumerate(tables):
+        before = widen.widen_slabs_group.launches
+        got = widen.widen_slabs_group(table, row0, size, G, offs)
+        want = widen.widen_slabs_group_plain(table, row0, size, G, offs)
+        torch.cuda.synchronize()
+        assert widen.widen_slabs_group.launches == before + 1
+        assert got.shape == (G, size, 8, F)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), skip
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@
     python tools/torch_profile_step.py [--hash-variant xor] [--trace PATH]
     python tools/torch_profile_step.py --hash-levels 16 --hash-feats 2 \
         [--hash-forward slabs --hash-backward factors] [--dtype mixed] \
-        [--route-ab]
+        [--route-ab | --quick]
 
 At the bench configuration (``chip_smoke.bench_config``, bench.py:311-348;
 with ``--hash-variant xor`` the reference's 16 x F=2 XOR hash of 2^19 rows
@@ -18,22 +18,27 @@ process and in this order:
 3. the skew of the segment-sum keys at one step's sample positions;
 4. 8 steps under ``torch.profiler``: device time per step, top kernels
    (``--trace`` writes the Chrome trace);
-5. 32 steps synced at each phase boundary: ms/step per phase;
-6. in-train A/B of the CUDA kernels against their plain versions,
+5. a host-side profile of 8 steps: kernel launches and synchronising
+   runtime calls per step, top operators by host time;
+6. 32 steps synced at each phase boundary: ms/step per phase;
+7. in-train A/B of the CUDA kernels against their plain versions,
    96 steps per arm in turns kernels/plain/plain/kernels, then
    8 profiled steps per arm.  The plain arm swaps the module globals the
    step calls (``hash_encoder.segment_sum_sorted``,
    ``hash_encoder.group_segment_sum_t_sorted``,
    ``hash_encoder.group_segment_sum_tsf_sorted``,
-   ``widen.widen_slabs_group`` and ``fused_adam.adam_update_``) for their
-   plain versions;
-7. with ``--route-ab`` (additive hash): in-train A/B of the routes
+   ``widen.widen_slabs_group`` and ``fused_adam.adam_update_leaves_``) for
+   their plain versions;
+8. with ``--route-ab`` (additive hash): in-train A/B of the routes
    ``corners``+``product`` against ``slabs``+``factors`` on the same
    state, 96 steps per turn in turns corners/slabs/slabs/corners twice
    over (the host clock drifts between turns), then 8 profiled steps per
    turn in turns corners/slabs/slabs/corners (device time, top kernels),
-   and a host-side profile of 8 steps per route (kernel launches and
-   synchronising runtime calls per step, top operators by host time).
+   and a host-side profile of 8 steps per route.
+
+``--quick`` stops after 5 (no key skew, phases or A/B): the steps and
+both profiles alone, which also run on a tree without this tool's other
+hooks, for a before/after comparison in one call.
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -88,7 +93,7 @@ def plain_kernels(on: bool):
     stack.enter_context(mock.patch.object(
         widen, "widen_slabs_group", widen.widen_slabs_group_plain))
     stack.enter_context(mock.patch.object(
-        fused_adam, "adam_update_", fused_adam.adam_update_plain_))
+        fused_adam, "adam_update_leaves_", fused_adam.adam_update_leaves_plain_))
     return stack
 
 
@@ -164,6 +169,14 @@ def host_profile(trainer, state, n=8, top=10):
     lines = [f"{e.self_cpu_time_total / 1e3 / n:9.3f} host ms/step "
              f"{e.count / n:7.1f} calls/step  {e.key[:80]}" for e in ops]
     return launches, syncs, lines
+
+
+def print_host_profile(label, trainer, state):
+    (n_launch, launch_ms), (n_sync, sync_ms), top = host_profile(trainer, state)
+    print(f"{label} over 8 steps: {n_launch:.1f} kernel launches/step "
+          f"({launch_ms:.3f} host ms), {n_sync:.1f} synchronising runtime "
+          f"calls/step ({sync_ms:.3f} host ms)", flush=True)
+    print("\n".join(top), flush=True)
 
 
 def phase_split(trainer, state, n=32):
@@ -251,7 +264,11 @@ def main():
                     help="compute mode (model.dtype)")
     ap.add_argument("--route-ab", action="store_true",
                     help="also A/B corners+product against slabs+factors")
+    ap.add_argument("--quick", action="store_true",
+                    help="only the timed steps and the device and host profiles")
     args = ap.parse_args()
+    if args.route_ab and args.quick:
+        ap.error("--route-ab and --quick exclude each other")
     if args.route_ab and args.hash_variant == "xor":
         ap.error("--route-ab: the XOR hash has one route")
     if not torch.cuda.is_available():
@@ -295,12 +312,16 @@ def main():
     print(f"bench protocol, steps {state.step - STEPS}-{state.step}: "
           f"{1e3 * dt:.3f} ms/step, {cfg.training.batch_size / dt:.0f} rays/s "
           f"(grid updates included)", flush=True)
-    for line in key_skew(trainer, state):
-        print("keys:", line, flush=True)
+    if not args.quick:
+        for line in key_skew(trainer, state):
+            print("keys:", line, flush=True)
     dev_ms, top = device_profile(trainer, state, trace=args.trace)
     print(f"profile, 8 steps after step {state.step - 8}: device time "
           f"{dev_ms:.3f} ms/step", flush=True)
     print("\n".join(top), flush=True)
+    print_host_profile("host side", trainer, state)
+    if args.quick:
+        return
     phases, res = phase_split(trainer, state)
     print("phases ms/step (32 steps, synced at each boundary): "
           + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
@@ -349,12 +370,7 @@ def main():
         print("\n".join(top), flush=True)
     for arm in turns[:2]:
         use_routes(state.model, *routes[arm])
-        (n_launch, launch_ms), (n_sync, sync_ms), top = host_profile(trainer, state)
-        print(f"route A/B {arm}: host side over 8 steps: {n_launch:.1f} kernel "
-              f"launches/step ({launch_ms:.3f} host ms), {n_sync:.1f} "
-              f"synchronising runtime calls/step ({sync_ms:.3f} host ms)",
-              flush=True)
-        print("\n".join(top), flush=True)
+        print_host_profile(f"route A/B {arm}", trainer, state)
 
 
 if __name__ == "__main__":

@@ -64,11 +64,14 @@ _SIGNATURES = {
     "vn_segment_sum_factors": (_P, _I, _P, _P, _P, _P, _I, _I, _L, _I, _P),
     # table, is_bf16, out, row0, size, G, F, corner_offsets, stream
     "vn_widen_slabs": (_P, _I, _P, _L, _I, _I, _I, _P, _P),
-    # p, g, mu, nu, n, lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2,
-    # eps, stream
-    "vn_fused_adam": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P),
-    "vn_fused_adam_bf16": (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F,
-                           _F, _P),
+    "vn_widen_tile_rows": (_I,),
+    "vn_widen_plane": (),
+    # ptrs (p, g, mu, nu per leaf), plan (n, head, body per leaf), flags
+    # (bf16, vec per leaf), leaves, lr, bc1, bc2, b1, one_minus_b1, b2,
+    # one_minus_b2, eps, stream
+    "vn_fused_adam": (_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    "vn_fused_adam_max_leaves": (),
+    "vn_fused_adam_chunk": (),
 }
 
 

@@ -1,4 +1,4 @@
-"""Adam with the big-leaf update fused into one CUDA pass.
+"""Adam with every leaf of a parameter group updated by one CUDA launch.
 
 Counterpart of ``fused_adam`` (virus_nerf_tpu/ops/fused_adam.py:96), whose
 TPU kernel is ``_adam_kernel`` (:37).  The CUDA kernel that replaces it is
@@ -7,12 +7,14 @@ TPU kernel is ``_adam_kernel`` (:37).  The CUDA kernel that replaces it is
 
 Semantics are ``optax.adam(lr, eps=eps)``: b1/b2 defaults, bias correction,
 eps outside the sqrt — the update rule of the reference's
-``torch.optim.Adam`` (training/trainer.py:49-57).  Leaves of at least
-``_MIN_KERNEL_SIZE`` elements go through :func:`adam_update_`; the TPU
-package gated its kernel to 1-D leaves because of XLA's column-major layout
-for narrow tables (fused_adam.py:135-139), a layout PyTorch does not have,
-so here the 2-D hash table takes the kernel too.  Smaller leaves use the
-plain version, where a launch would cost more than the update.
+``torch.optim.Adam`` (training/trainer.py:49-57).  On the card
+:class:`FusedAdam` updates all leaves of a group (the hash table and the
+MLP weights) with one launch of the kernel through
+:func:`adam_update_leaves_`, up to ``ADAM_MAX_LEAVES`` leaves a launch.
+The TPU package gated its kernel to 1-D leaves of at least 2^20 elements
+(XLA's column-major layout for narrow tables and the cost of a launch,
+fused_adam.py:101, 135-139); neither applies here.  On the CPU every leaf
+takes the plain version.
 
 A bf16 leaf (the ``bfloat16`` compute mode's hash table) keeps float32
 moments; the gradient is taken in float32, the update is computed in
@@ -22,14 +24,17 @@ float32 and ``p = bf16(float32(p) + d)``, which is what
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from virus_nerf_tpu_torch.ops import _build
 
-# leaves below this size take the plain version (``min_pallas_size``,
-# fused_adam.py:101)
-_MIN_KERNEL_SIZE = 1 << 20
+# constants of csrc/fused_adam.cu (a card test compares them with the
+# library's): leaves of one launch, elements of one CTA's chunk
+ADAM_MAX_LEAVES = 16
+ADAM_CHUNK = 2048
 
 
 def adam_scalars(lr: float, b1: float, b2: float, count: int):
@@ -56,32 +61,34 @@ def adam_update_plain_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
         p.copy_(p.float() + d)
 
 
+def adam_update_leaves_plain_(leaves, lr, bc1, bc2, b1, b2, eps):
+    """The plain version over a list of (p, g, mu, nu) leaves."""
+    for p, g, mu, nu in leaves:
+        adam_update_plain_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps)
+
+
 def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _adam_update_cuda_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
-    for t in (g, mu, nu):
-        if t.device != p.device or t.shape != p.shape:
-            raise ValueError("adam_update_: p, g, mu, nu must share device and shape")
-    lib = _build.library()
-    entry = "vn_fused_adam" if p.dtype == torch.float32 else "vn_fused_adam_bf16"
-    err = getattr(lib, entry)(
-        p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), p.numel(),
-        lr, bc1, bc2, _f32(b1), _f32(1.0 - b1), _f32(b2), _f32(1.0 - b2),
-        _f32(eps), torch.cuda.current_stream(p.device).cuda_stream,
-    )
-    _build.check(err, entry)
-    adam_update_.launches += 1
+def adam_leaf_plan(p_ptr: int, g_ptr: int, mu_ptr: int, nu_ptr: int, n: int,
+                   bf16: bool):
+    """How the kernel splits a leaf of n elements at these addresses:
+    ``(head, body, vec)``.  With ``vec``, elements [0, head) and
+    [head + body, n) are scalar (fewer than 4 each) and [head, head + body)
+    go in 16-byte vectors (8-byte ones for a bf16 p), which needs the four
+    arrays to share their phase in 4-element units; else the whole leaf is
+    the body, in scalar chunks.  The body is cut into ``ADAM_CHUNK``-element
+    chunks (at least one for a leaf that is not empty)."""
+    phase = (g_ptr // 4) % 4
+    p_phase = (p_ptr // 2 if bf16 else p_ptr // 4) % 4
+    if p_phase == phase and (mu_ptr // 4) % 4 == phase and (nu_ptr // 4) % 4 == phase:
+        head = min((4 - phase) % 4, n)
+        return head, (n - head) // 4 * 4, True
+    return 0, n, False
 
 
-def adam_update_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
-    """One Adam step of one leaf, in place (p += d; mu, nu updated).
-
-    A CUDA tensor launches ``csrc/fused_adam.cu`` (or raises); a CPU tensor
-    takes :func:`adam_update_plain_`.  ``.launches`` counts kernel launches.
-    p is float32 or bf16; g, mu and nu are float32.
-    """
+def _check_leaf(p, g, mu, nu):
     if p.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"adam_update_: want a float32 or bf16 p, got {p.dtype}")
     for t in (p, g, mu, nu):
@@ -90,19 +97,72 @@ def adam_update_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
     for t in (g, mu, nu):
         if t.dtype != torch.float32:
             raise ValueError("adam_update_: want float32 g, mu and nu")
-    if p.is_cuda:
-        return _adam_update_cuda_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps)
-    if p.device.type == "cpu":
-        return adam_update_plain_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps)
-    raise ValueError(f"adam_update_: unsupported device {p.device}")
+        if t.device != p.device or t.shape != p.shape:
+            raise ValueError("adam_update_: p, g, mu, nu must share device and shape")
 
 
-adam_update_.launches = 0
+def _adam_launch_(leaves, lr, bc1, bc2, b1, b2, eps):
+    """One launch of the kernel for at most ``ADAM_MAX_LEAVES`` leaves."""
+    k = len(leaves)
+    ptrs, plan, flags = [], [], []
+    for p, g, mu, nu in leaves:
+        addrs = [t.data_ptr() for t in (p, g, mu, nu)]
+        bf16 = p.dtype == torch.bfloat16
+        head, body, vec = adam_leaf_plan(*addrs, p.numel(), bf16)
+        ptrs += addrs
+        plan += [p.numel(), head, body]
+        flags += [int(bf16), int(vec)]
+    err = _build.library().vn_fused_adam(
+        (ctypes.c_void_p * (4 * k))(*ptrs), (ctypes.c_longlong * (3 * k))(*plan),
+        (ctypes.c_int * (2 * k))(*flags), k, lr, bc1, bc2, _f32(b1),
+        _f32(1.0 - b1), _f32(b2), _f32(1.0 - b2), _f32(eps),
+        torch.cuda.current_stream(leaves[0][0].device).cuda_stream,
+    )
+    _build.check(err, "vn_fused_adam")
+    adam_update_leaves_.launches += 1
+
+
+def adam_update_leaves_(leaves, lr, bc1, bc2, b1, b2, eps):
+    """One Adam step of every (p, g, mu, nu) leaf, in place (p += d; mu, nu
+    updated), all with the same scalars.
+
+    On the card one launch of ``csrc/fused_adam.cu`` updates them all (one
+    more for every further ``ADAM_MAX_LEAVES``), or raises; on the CPU each
+    leaf takes :func:`adam_update_plain_`.  ``.launches`` counts kernel
+    launches.  p is float32 or bf16; g, mu and nu are float32; all leaves
+    lie on one device.
+    """
+    leaves = [tuple(leaf) for leaf in leaves]
+    for leaf in leaves:
+        _check_leaf(*leaf)
+    devices = {leaf[0].device for leaf in leaves}
+    if len(devices) > 1:
+        raise ValueError(f"adam_update_: leaves on several devices {devices}")
+    if not leaves:
+        return
+    device = leaves[0][0].device
+    if device.type == "cuda":
+        for i in range(0, len(leaves), ADAM_MAX_LEAVES):
+            _adam_launch_(leaves[i:i + ADAM_MAX_LEAVES], lr, bc1, bc2, b1, b2, eps)
+    elif device.type == "cpu":
+        adam_update_leaves_plain_(leaves, lr, bc1, bc2, b1, b2, eps)
+    else:
+        raise ValueError(f"adam_update_: unsupported device {device}")
+
+
+adam_update_leaves_.launches = 0
+
+
+def adam_update_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
+    """One Adam step of one leaf, in place: :func:`adam_update_leaves_` on
+    ``[(p, g, mu, nu)]`` (its ``.launches`` counts the launch)."""
+    adam_update_leaves_([(p, g, mu, nu)], lr, bc1, bc2, b1, b2, eps)
 
 
 class FusedAdam(torch.optim.Optimizer):
-    """``optax.adam(lr, b1, b2, eps)`` with one shared step count, big
-    leaves updated by the fused kernel (see module doc)."""
+    """``optax.adam(lr, b1, b2, eps)`` with one shared step count; on the
+    card one kernel launch a step updates every leaf of a group (see module
+    doc)."""
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
@@ -125,16 +185,10 @@ class FusedAdam(torch.optim.Optimizer):
             lr, bc1, bc2 = adam_scalars(
                 group["lr"], group["b1"], group["b2"], self.count
             )
-            args = (lr, bc1, bc2, group["b1"], group["b2"], group["eps"])
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                mu, nu = self._moments(p)
-                g = p.grad.float()
-                if p.numel() >= _MIN_KERNEL_SIZE:
-                    adam_update_(p, g.contiguous(), mu, nu, *args)
-                else:
-                    adam_update_plain_(p, g, mu, nu, *args)
+            leaves = [(p, p.grad.float().contiguous(), *self._moments(p))
+                      for p in group["params"] if p.grad is not None]
+            adam_update_leaves_(leaves, lr, bc1, bc2, group["b1"], group["b2"],
+                                group["eps"])
 
     def load_moments(self, named_params, count: int, mu: dict, nu: dict):
         """Set the step count and the moments from dicts keyed like

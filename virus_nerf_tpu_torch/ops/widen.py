@@ -38,6 +38,17 @@ from virus_nerf_tpu_torch.ops.hash_encoder import (
 
 # F values the kernel is instantiated for (csrc/widen_slabs.cu)
 WIDEN_KERNEL_FEATS = (1, 2, 4, 8)
+# constants of csrc/widen_slabs.cu (a card test compares them with the
+# library's): bytes of a CTA's (TR, 8, F) bf16 output tile, and bf16 of one
+# corner plane of its shared-memory tile (TR * F plus the phases of the
+# window's two runs)
+WIDEN_TILE_BYTES = 32768
+WIDEN_PLANE = WIDEN_TILE_BYTES // 16 + 24
+
+
+def widen_tile_rows(F: int) -> int:
+    """Base rows of one CTA's tile at F features (TR)."""
+    return WIDEN_TILE_BYTES // (16 * F)
 
 
 def widen_slabs_group_plain(table, row0: int, size: int, G: int,
@@ -97,6 +108,10 @@ def _widen_slabs_group_cuda(table, row0: int, size: int, G: int,
         )
     if not table.is_contiguous():
         raise ValueError("widen_slabs_group: the table must be contiguous")
+    if table.data_ptr() % (F * table.element_size()):
+        # the kernel keeps a row's F values together in its tile, which
+        # needs a table pointer at a multiple of F elements
+        table, row0 = table[row0:row0 + G * size].clone(), 0
     out = torch.empty((G, size, 8, F), dtype=torch.bfloat16,
                       device=table.device)
     offs = (ctypes.c_int * 8)(*(int(o) for o in corner_offsets))
