@@ -11,13 +11,14 @@ Phases, each printed as it finishes; any failure exits non-zero:
    bit for bit) on the card and time them (CUDA events, in turns
    kernel/plain/library/library/plain/kernel; a segment sum's library call
    is a zero fill of its output plus one ``index_add_``, the same
-   function): the transposed segment sum
-   (B1) at the kernel-CI cases of bench.py, the row-major segment sum (B3)
-   on uniform, skewed, padded-row and odd-group keys, B1 and the factor
+   function; each segment sum also gets its ``torch.profiler`` device
+   time per call): the transposed segment sum (B1) at the kernel-CI cases
+   of bench.py, the row-major segment sum (B3) on uniform, skewed,
+   padded-row and odd-group keys, B1, B3 (float32, F = 2) and the factor
    segment sum (B4, bf16, F = 2) on 917,504 entries over 524,288 rows with
-   700,000 on one row and on uniform keys, and B1 and B4 with every key
-   outside [0, n_rows) (all 0); ptxas's registers and spills of B1 and B4
-   are printed after the build, as are B2's and B5's;
+   700,000 on one row and on uniform keys, and B1, B3 and B4 with every key
+   outside [0, n_rows) (all 0); ptxas's registers and spills of B1, B3 and
+   B4 are printed after the build, as are B2's and B5's;
 3. the bench path: ``Trainer`` at the bench configuration (bench.py:311-348:
    synthetic scene 16 x 160x120, 4096 rays, 8 x F=4 additive hash levels of
    2^19 rows, 128^3 VIRUS grid updated every 8 steps, S=128, budget
@@ -113,12 +114,13 @@ def time_turns(fns, iters: int = 10):
     return [(a + b) / 2 for a, b in zip(first, second)]
 
 
-def device_ms(fn, part: str, iters: int = 10):
-    """Device ms per launch of the kernels whose name holds ``part``, from
+def device_ms(fn, part: str, iters: int = 10, per_call: int = 1):
+    """Device ms per call of the kernels whose name holds ``part``, from
     ``torch.profiler`` over ``iters`` calls of ``fn`` after a warm-up: the
     kernel's own time, without the host's time between launches, which
-    CUDA events around a short kernel also count.  Per recorded launch, as
-    the profiler may drop a launch's record; NaN if it kept none."""
+    CUDA events around a short kernel also count.  Taken per recorded
+    launch, as the profiler may drop a launch's record, times the
+    ``per_call`` launches of a call; NaN if it kept none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -129,7 +131,9 @@ def device_ms(fn, part: str, iters: int = 10):
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages() if part in e.key]
     n = sum(e.count for e in ev)
-    return sum(e.self_device_time_total for e in ev) / 1e3 / n if n else float("nan")
+    if not n:
+        return float("nan")
+    return sum(e.self_device_time_total for e in ev) / 1e3 / n * per_call
 
 
 # ------------------------------------------------------ segment sums (B1, B3)
@@ -174,7 +178,8 @@ def skew_segment_cases(dev, layout):
     """(name, vals, keys, n_rows) on the card: a stream of 917,504 entries
     over 524,288 rows with 700,000 of them on one row, and the same K and
     n_rows on uniform keys; (1, 32, K) float32 values for B1 ("ts"), a
-    (1, 10, K) bf16 factor stream (F = 2) for B4 ("tsf")."""
+    (1, K, 2) float32 row-major stream for B3 ("rows"), a (1, 10, K) bf16
+    factor stream (F = 2) for B4 ("tsf")."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     K, R = 917504, 524288
@@ -187,6 +192,8 @@ def skew_segment_cases(dev, layout):
                     ("one_row_700000", torch.sort(skew, dim=1).values)):
         if layout == "ts":
             vals = torch.randn((1, 32, K), generator=gen, device=dev)
+        elif layout == "rows":
+            vals = torch.randn((1, K, 2), generator=gen, device=dev)
         else:
             vals = torch.cat([torch.rand((1, 8, K), generator=gen, device=dev),
                               torch.randn((1, 2, K), generator=gen, device=dev)],
@@ -204,8 +211,9 @@ def check_out_of_range(dev, layout):
         torch.randint(-5000, 0, (2, 30000), generator=gen, device=dev),
         torch.randint(R, R + 900, (2, 60000), generator=gen, device=dev)],
         dim=1), dim=1).values.to(torch.int32).contiguous()
-    width = 32 if layout == "ts" else 10
-    vals = torch.randn((2, width, keys.shape[1]), generator=gen, device=dev)
+    shape = {"ts": (2, 32, keys.shape[1]), "rows": (2, keys.shape[1], 2),
+             "tsf": (2, 10, keys.shape[1])}[layout]
+    vals = torch.randn(shape, generator=gen, device=dev)
     if layout == "tsf":
         vals = vals.to(torch.bfloat16)
     kernel = _ops(2)[layout][0]
@@ -219,8 +227,9 @@ def check_out_of_range(dev, layout):
         fail(f"segment_sum[{layout}] with every key out of range")
 
 
-def ptxas_report(lib_path, sources=("segment_sum.cu", "segment_sum_factors.cu",
-                                    "fused_adam.cu", "widen_slabs.cu")):
+def ptxas_report(lib_path, sources=("segment_sum.cu", "segment_sum_rows.cu",
+                                    "segment_sum_factors.cu", "fused_adam.cu",
+                                    "widen_slabs.cu")):
     """Registers and spills of every kernel of ``sources``, from the
     ``-Xptxas -v`` report of the build."""
     from virus_nerf_tpu_torch.ops import _build
@@ -353,16 +362,17 @@ def _ops(F: int = 0):
     from virus_nerf_tpu_torch.ops import segment_sum as ss
 
     # layout -> (kernel wrapper, plain version, the summed terms as a
-    # (G, width, K) tensor in the dtype the kernel sums them)
+    # (G, width, K) tensor in the dtype the kernel sums them, a part of the
+    # kernel's device function names)
     return {
         "ts": (ss.segment_sum_sorted, ss.segment_sum_sorted_plain,
-               lambda v: v),
+               lambda v: v, "TransposedLoader"),
         "rows": (ss.group_segment_sum_t_sorted,
                  ss.group_segment_sum_t_sorted_plain,
-                 lambda v: v.transpose(1, 2)),
+                 lambda v: v.transpose(1, 2), "RowLoader"),
         "tsf": (lambda v, k, R: ss.group_segment_sum_tsf_sorted(v, k, R, F),
                 lambda v, k, R: ss.group_segment_sum_tsf_sorted_plain(v, k, R, F),
-                lambda v: ss.factor_products(v, F)),
+                lambda v: ss.factor_products(v, F), "FactorLoader"),
     }
 
 
@@ -374,11 +384,12 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
     keeps its margin on long segments while a dropped or misplaced sample
     still fails; an empty row must be exactly 0.  For the factor layout the
     summed terms are the products as the factor dtype rounds them.  Returns
-    a dict of max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by."""
+    a dict of max_abs_err, ms, device_ms (the kernel's two launches),
+    plain_ms, library_ms, bound_ms, bound_by."""
     from virus_nerf_tpu_torch.ops.segment_sum import segment_sum_sorted_plain
 
     F = vals.shape[1] - 8 if layout == "tsf" else 0
-    kernel, plain, terms_of = _ops(F)[layout]
+    kernel, plain, terms_of, kernel_name = _ops(F)[layout]
     G, K = keys.shape
     got = kernel(vals, keys, R)
     again = kernel(vals, keys, R)
@@ -412,6 +423,7 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
         lambda: torch.zeros((G * R, width), device=vals.device).index_add_(
             0, idx, src),
     ])
+    dev_ms = device_ms(lambda: kernel(vals, keys, R), kernel_name, per_call=2)
     # each input read once, each output written once; one add per term
     # (and one multiply for a factor product)
     b_ms, b_by = bound_ms(
@@ -424,13 +436,14 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
         f"{share:.3f} of the samples; max_abs_err {err:.3e}, err/tol "
         f"{ratio:.3f} vs plain, {ratio_exact:.3f} vs float64 (tol "
         f"4*eps32*sqrt(n)*sum|v| per row), two calls bit-identical {repeat}; "
-        f"kernel {ms:.4f} ms plain "
+        f"kernel {ms:.4f} ms (device {dev_ms:.4f}) plain "
         f"{plain_ms:.4f} ms zeros+index_add_ {lib_ms:.4f} ms bound {b_ms:.4f} ms "
         f"({b_by}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"segment_sum[{layout}] {name} disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def sum_results(results):
@@ -848,7 +861,7 @@ def main() -> None:
     for case in rows_segment_cases(dev):
         check_segment_sum(*case, layout="rows")
     skew = {}
-    for layout in ("ts", "tsf"):
+    for layout in ("ts", "rows", "tsf"):
         uni, hot = (check_segment_sum(*case, layout=layout)
                     for case in skew_segment_cases(dev, layout))
         log(f"segment_sum[{layout}] 700,000 samples on one row: "
@@ -986,7 +999,8 @@ def main() -> None:
                                  zip(paths.items(), (48, 32, 32))}),
         entry("group_segment_sum_t_sorted", "segment_sum_rows",
               "segment_sum_rows.cu",
-              "virus_nerf_tpu/ops/segment_sum_pallas.py:101", ["xor"], b3),
+              "virus_nerf_tpu/ops/segment_sum_pallas.py:101", ["xor"], b3,
+              **skew["rows"]),
         entry("group_segment_sum_tsf_sorted", "segment_sum_factors",
               "segment_sum_factors.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:333", ["slabs"],

@@ -212,6 +212,52 @@ def test_segment_sum_rows_kernel_matches_plain(cuda_device, name):
 
 
 @pytest.mark.cuda
+def test_segment_rows_constants_match_the_kernel(cuda_device):
+    lib = _build.library()
+    assert lib.vn_segment_rows_short_window() == tss.ROW_SHORT_WINDOW
+    for F in tss.ROW_KERNEL_WIDTHS:
+        for dense in (False, True):
+            assert lib.vn_segment_rows_tile_rows(F, int(dense)) == tss.row_tile_rows(F, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+@pytest.mark.parametrize("lead", [0, 1])
+@pytest.mark.parametrize("dense", [False, True])
+def test_segment_sum_rows_kernel_writes_its_out_block(cuda_device, F, lead, dense):
+    # the block of a larger buffer, after `lead` rows (lead 1 at F = 1 puts
+    # it off a 16-byte boundary); two groups over a ragged last tile, with
+    # a long window on one row and rows no key hits; sparse or dense tiles
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(13)
+    G, R = 2, 2 * tss.row_tile_rows(F, dense) + 37
+    K = 40000 if dense else 400
+    assert tss.row_tiles_dense(F, K, R) == dense
+    k = torch.randint(0, R - 50, (G, K), generator=gen, device=cuda_device)
+    k[1, :K // 2] = 5
+    keys = torch.sort(k, dim=1).values.to(torch.int32).contiguous()
+    vals = torch.randn((G, K, F), generator=gen, device=cuda_device)
+    buf = torch.full((lead + G * R + 3, F), float("nan"), device=cuda_device)
+    block = buf[lead:lead + G * R].view(G, R, F)
+    before = group_segment_sum_t_sorted.launches
+    got = group_segment_sum_t_sorted(vals, keys, R, out=block)
+    want = group_segment_sum_t_sorted(vals, keys, R)
+    torch.cuda.synchronize()
+    assert group_segment_sum_t_sorted.launches == before + 2
+    # the result is the block itself, seen as (G, F, R)
+    assert got.data_ptr() == block.data_ptr() and got.stride() == (R * F, 1, F)
+    assert torch.equal(got, want)  # deterministic, whatever the alignment
+    assert bool(buf[:lead].isnan().all()) and bool(buf[lead + G * R:].isnan().all())
+    exact = group_segment_sum_t_sorted_plain(vals.double(), keys, R)
+    counts = torch.stack([torch.bincount(keys[g].long(), minlength=R)
+                          for g in range(G)]).double()
+    mag = group_segment_sum_t_sorted_plain(vals.abs().double(), keys, R)
+    tol = 4 * torch.finfo(torch.float32).eps * counts.sqrt()[:, None] * mag
+    assert bool(((got.double() - exact).abs() <= tol).all())
+    assert bool((got[mag == 0] == 0).all())  # rows no key hits are 0
+
+
+@pytest.mark.cuda
 def test_segment_sum_rows_kernel_rejects_unsupported_width(cuda_device):
     vals = torch.zeros((1, 8, 3), device=cuda_device)
     keys = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)

@@ -135,6 +135,35 @@ def test_cpu_tensor_takes_plain_version_without_counting():
     assert tss.group_segment_sum_t_sorted.launches == before
 
 
+@pytest.mark.parametrize("name", CASES)
+def test_out_block_equals_the_returned_result(name):
+    sv, sk, R = _case(name, 3)
+    G, _, F = sv.shape
+    want = tss.group_segment_sum_t_sorted(torch.from_numpy(sv), torch.from_numpy(sk), R)
+    # the (G, F, R) result is the transposed view of (G, R, F) storage
+    assert tuple(want.shape) == (G, F, R) and want.stride() == (R * F, 1, F)
+    assert want.transpose(1, 2).is_contiguous()
+    # out=: the block of a larger buffer is written, its neighbours are not
+    buf = torch.full((G * R + 5, F), float("nan"))
+    block = buf[2:2 + G * R].view(G, R, F)
+    got = tss.group_segment_sum_t_sorted(torch.from_numpy(sv), torch.from_numpy(sk),
+                                         R, out=block)
+    assert got.data_ptr() == block.data_ptr() and got.stride() == want.stride()
+    assert torch.equal(got, want)
+    assert bool(buf[:2].isnan().all()) and bool(buf[2 + G * R:].isnan().all())
+
+
+@pytest.mark.parametrize(
+    "out",
+    [torch.zeros(2, 16, 3), torch.zeros(2, 16, 2, dtype=torch.float64),
+     torch.zeros(2, 2, 16).transpose(1, 2), torch.zeros(1, 16, 2)],
+)
+def test_out_must_be_contiguous_float32_rows(out):
+    with pytest.raises(ValueError):
+        tss.group_segment_sum_t_sorted(
+            torch.zeros(2, 8, 2), torch.zeros(2, 8, dtype=torch.int32), 16, out=out)
+
+
 def test_empty_stream_gives_zeros():
     out = tss.group_segment_sum_t_sorted(
         torch.zeros((2, 0, 2)), torch.zeros((2, 0), dtype=torch.int32), 7

@@ -1,21 +1,29 @@
 """The row-tile segment-sum algorithm of csrc/segment_tiles.cuh (the core of
-the transposed segment sum B1 and the factor segment sum B4), emulated in
-numpy launch by launch, against a float64 sum and against the JAX package's
-``group_segment_sum_ts_sorted`` and ``group_segment_sum_tsf_sorted`` (their
+the transposed segment sum B1, the row-major segment sum B3 and the factor
+segment sum B4), emulated in numpy launch by launch, against a float64 sum
+and against the JAX package's ``group_segment_sum_ts_sorted``,
+``group_segment_sum_t_sorted`` and ``group_segment_sum_tsf_sorted`` (their
 CPU path).
 
 The CUDA kernels cannot run without a card; this emulation follows them
-step for step: the first launch (each tile's first stream entry; one
-512-entry chunk at a time, skipped where no long window reaches it,
-run-piece sums left at the piece's last position) and the tile launch
-(each tile's window from those starts, the cut at ``SHORT_WINDOW``
-entries, contiguous pieces (one per warp of a plane group) whose inner
-runs are stored and whose first and last runs are joined in order, and
-for a long window each row's join of its chunks' partials).  It reads its
-constants from ``ops/segment_sum.py``; the card test in
-test_torch_cuda_kernels.py checks that the C side has the same.  Scratch
-and output start as NaN, so a value read before it is written, or a row
-the tiles never store, fails the comparison."""
+step for step: the first launch (each tile's first stream entry by a
+binary search; one warp per 512-entry chunk that leaves where no long
+window reaches it, as two probes or else a search of the window show, or
+else leaves run-piece sums at the piece's last position) and the tile
+launch (each tile's window from those starts, the cut at the
+short-window length C, contiguous pieces of whole 32-entry steps (one per
+warp of a plane group) whose inner runs are stored and whose first and
+last runs are joined in order, and for a long window each row's bounds
+by a search and its join of its chunks' partials).  B1 and B4 take tiles
+of ``tile_rows(V)`` rows and C = ``SHORT_WINDOW``; B3 takes
+``row_tile_rows(F, dense)`` rows (the dense tiles where
+``row_tiles_dense`` says so), C = ``ROW_SHORT_WINDOW``, and stores its
+tile as (rows, F).  It reads its constants from ``ops/segment_sum.py``;
+the card tests in test_torch_cuda_kernels.py check that the C side has
+the same.  Scratch and output start as NaN, so a value read before it is
+written, or a row the tiles never store, fails the comparison."""
+
+from collections import namedtuple
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -32,6 +40,20 @@ EPS32 = float(np.finfo(np.float32).eps)
 C, CHUNK = tss.SHORT_WINDOW, tss.TILE_CHUNK
 WARPS = 8  # warps of a tile CTA
 WARP = 32
+
+# a loader's tiles: rows R, short-window cut C, and whether the tile is
+# stored as (rows, V) rows
+Shape = namedtuple("Shape", "R C row_major")
+
+
+def _tile_shape(V):
+    """B1's and B4's tiles at V planes."""
+    return Shape(tss.tile_rows(V), C, False)
+
+
+def _row_shape(F, dense):
+    """B3's sparse or dense tiles at F features."""
+    return Shape(tss.row_tile_rows(F, dense), tss.ROW_SHORT_WINDOW, True)
 
 
 def _pieces(V):
@@ -56,27 +78,30 @@ def _window(kg, t, n_rows, R):
     return lo, hi
 
 
-def _starts(kg, n_rows, R):
-    """Each tile's first stream entry as launch 1 writes it: entry i (and
-    i = K) writes starts[t] = i for the tiles after its predecessor's tile
-    up to its own (a key below 0 is tile -1, one at or above n_rows tile
-    n_tiles)."""
-    n_tiles = -(-n_rows // R)
-    tile = np.where(kg < 0, -1, np.where(kg >= n_rows, n_tiles, kg // R))
-    t0 = np.concatenate([[-1], tile])  # the predecessor's tile, per entry
-    t1 = np.concatenate([tile, [n_tiles]])
-    starts = np.repeat(np.arange(len(kg) + 1), t1 - t0)
-    assert len(starts) == n_tiles + 1  # every tile's start written once
-    return starts
+def _is_long(kg, t, c, n_rows, shape):
+    """Launch 1's check whether the window of tile t is longer than C: two
+    probes C / 2 entries either side of entry c may show that it is not;
+    else the window is searched."""
+    r0, K = t * shape.R, len(kg)
+    a, b = c - shape.C // 2, c + shape.C // 2
+    starts_after = a < 0 or kg[a] < r0
+    ends_by = b >= K or kg[b] >= min(r0 + shape.R, n_rows)
+    lo, hi = _window(kg, t, n_rows, shape.R)
+    if starts_after and ends_by:
+        assert hi - lo <= shape.C  # the probes are right when they say so
+        return False
+    return hi - lo > shape.C
 
 
-def tile_segment_sum(terms, keys, n_rows):
+def tile_segment_sum(terms, keys, n_rows, shape):
     """The kernels' two launches on (G, V, K) float32 terms and (G, K)
-    sorted int32 keys.  Returns the (G, V, n_rows) float32 sums and the
-    number of long windows."""
+    sorted int32 keys, at a loader's tile shape.  Returns the (G, V,
+    n_rows) float32 sums (read from (G, n_rows, V) storage for a
+    row-major store) and the number of long windows."""
     G, V, K = terms.shape
-    R = tss.tile_rows(V)
-    out = np.full((G, V, n_rows), np.nan, np.float32)
+    R, Cw = shape.R, shape.C
+    store = np.full((G, n_rows, V) if shape.row_major else (G, V, n_rows),
+                    np.nan, np.float32)
     part = np.full((G, K, V), np.nan, np.float32)
     n_long = 0
     for g in range(G):
@@ -85,19 +110,17 @@ def tile_segment_sum(terms, keys, n_rows):
         def piece_sum(a, b):
             return vg[:, a:b].sum(axis=1, dtype=np.float32)
 
-        def is_long(t):
-            lo, hi = _window(kg, t, n_rows, R)
-            return hi - lo > C
-
-        # launch 1: the tiles' windows, and one warp per chunk
-        starts = _starts(kg, n_rows, R)
+        # launch 1: each tile's first entry by a search, one warp per chunk
+        n_tiles = -(-n_rows // R)
+        starts = np.searchsorted(kg, np.minimum(np.arange(n_tiles + 1) * R, n_rows))
         for c0 in range(0, K, CHUNK):
             c1 = min(c0 + CHUNK, K)
             kf, kl = int(kg[c0]), int(kg[c1 - 1])
             if kl < 0 or kf >= n_rows:
                 continue
             tf, tl = max(kf, 0) // R, min(kl, n_rows - 1) // R
-            if not (is_long(tf) or (tl != tf and is_long(tl))):
+            if not (_is_long(kg, tf, c0, n_rows, shape)
+                    or (tl != tf and _is_long(kg, tl, c1 - 1, n_rows, shape))):
                 continue
             for key, a, b in _runs(kg, c0, c1):
                 if 0 <= key < n_rows:
@@ -111,7 +134,7 @@ def tile_segment_sum(terms, keys, n_rows):
             lo, hi = int(starts[t]), int(starts[t + 1])
             assert (lo, hi) == _window(kg, t, n_rows, R)
             n = hi - lo
-            if n <= C:
+            if n <= Cw:
                 Q = _pieces(V)
                 per = -(-n // Q)
                 piece = -(-per // WARP) * WARP
@@ -153,7 +176,11 @@ def tile_segment_sum(terms, keys, n_rows):
                     for c in range(a // CHUNK, (b - 1) // CHUNK + 1):
                         s = s + part[g, min(b, (c + 1) * CHUNK) - 1]
                     acc[:, r] = s
-            out[g, :, r0:r0 + rows] = acc[:, :rows]
+            if shape.row_major:
+                store[g, r0:r0 + rows] = acc[:, :rows].T
+            else:
+                store[g, :, r0:r0 + rows] = acc[:, :rows]
+    out = store.transpose(0, 2, 1) if shape.row_major else store
     return out, n_long
 
 
@@ -165,9 +192,9 @@ LONG = {"uniform": 0, "window_C": 0, "window_C_plus_1": 1, "empty": 0,
         "all_out_of_range": 0, "ragged_last_tile": 0}
 
 
-def _keys(name, R):
+def _keys(name, R, Cw=C):
     """(keys (G, K) sorted int32, n_rows) of one case, for tiles of R
-    rows."""
+    rows and a short-window cut of Cw entries."""
     rng = np.random.default_rng(20 + CASES.index(name))
     if name == "uniform":
         return np.sort(rng.integers(0, 12000, (2, 6000)), axis=1), 12000
@@ -178,7 +205,7 @@ def _keys(name, R):
         return np.sort(k, axis=1), 5000
     if name in ("window_C", "window_C_plus_1"):
         # tile 1 (rows R..2R - 1) holds exactly C or C + 1 entries
-        n1 = C + (name == "window_C_plus_1")
+        n1 = Cw + (name == "window_C_plus_1")
         k = np.concatenate([rng.integers(0, R, 700), rng.integers(R, 2 * R, n1),
                             rng.integers(2 * R, 4 * R, 900)])
         return np.sort(k)[None], 4 * R
@@ -187,9 +214,10 @@ def _keys(name, R):
     if name == "out_of_range":
         # keys below 0 and at or above n_rows are dropped; a long window
         # sits next to them at both ends
-        k = rng.integers(-60, 2060, (2, 11000))
-        k[:, :5000] = rng.integers(0, 100, (2, 5000))
-        k[:, 5000:10000] = rng.integers(1950, 2000, (2, 5000))
+        hot = max(5000, Cw + 1000)
+        k = rng.integers(-60, 2060, (2, 2 * hot + 1000))
+        k[:, :hot] = rng.integers(0, 100, (2, hot))
+        k[:, hot:2 * hot] = rng.integers(1950, 2000, (2, hot))
         return np.sort(k, axis=1), 2000
     if name == "all_out_of_range":
         k = np.concatenate([rng.integers(-500, 0, (1, 700)),
@@ -223,10 +251,10 @@ def _oracle(terms, keys, n_rows):
     return exact.transpose(0, 2, 1), tol.transpose(0, 2, 1), mag.transpose(0, 2, 1)
 
 
-def _check(name, terms, keys, n_rows, jax_fn):
+def _check(name, terms, keys, n_rows, jax_fn, shape):
     """The emulation against the float64 oracle (per-row bound; empty rows
     exactly 0) and against the JAX contract function."""
-    got, n_long = tile_segment_sum(terms, keys, n_rows)
+    got, n_long = tile_segment_sum(terms, keys, n_rows, shape)
     exact, tol, mag = _oracle(terms, keys, n_rows)
     assert got.shape == exact.shape
     assert np.all(np.abs(got - exact) <= tol), np.nanmax(np.abs(got - exact) - tol)
@@ -253,7 +281,8 @@ def _check(name, terms, keys, n_rows, jax_fn):
 @pytest.mark.parametrize("VF", [16, 32, 64])
 @pytest.mark.parametrize("name", CASES)
 def test_transposed_tiles_match_float64_and_jax(name, VF):
-    keys, n_rows = _keys(name, tss.tile_rows(VF))
+    shape = _tile_shape(VF)
+    keys, n_rows = _keys(name, shape.R)
     keys = keys.astype(np.int32)
     rng = np.random.default_rng(VF)
     vals = rng.standard_normal((keys.shape[0], VF, keys.shape[1])).astype(np.float32)
@@ -263,7 +292,27 @@ def test_transposed_tiles_match_float64_and_jax(name, VF):
             jnp.asarray(vals[g:g + 1][:, :, m]), jnp.asarray(keys[g:g + 1][:, m]),
             n_rows)
 
-    got = _check(name, vals, keys, n_rows, jax_fn)
+    got = _check(name, vals, keys, n_rows, jax_fn, shape)
+    if keys.size and ((keys >= 0) & (keys < n_rows)).any():
+        assert np.abs(got).max() > 1.0  # the comparison is not vacuous
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("F", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", CASES)
+def test_row_tiles_match_float64_and_jax(name, F, dense):
+    shape = _row_shape(F, dense)
+    keys, n_rows = _keys(name, shape.R, shape.C)
+    keys = keys.astype(np.int32)
+    rng = np.random.default_rng(200 + F)
+    vals = rng.standard_normal((keys.shape[0], keys.shape[1], F)).astype(np.float32)
+
+    def jax_fn(g, m):
+        return jss.group_segment_sum_t_sorted(
+            jnp.asarray(vals[g:g + 1][:, m]), jnp.asarray(keys[g:g + 1][:, m]),
+            n_rows)
+
+    got = _check(name, vals.transpose(0, 2, 1), keys, n_rows, jax_fn, shape)
     if keys.size and ((keys >= 0) & (keys < n_rows)).any():
         assert np.abs(got).max() > 1.0  # the comparison is not vacuous
 
@@ -272,7 +321,7 @@ def test_transposed_tiles_match_float64_and_jax(name, VF):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", CASES)
 def test_factor_tiles_match_float64_and_jax(name, dtype, F):
-    keys, n_rows = _keys(name, tss.tile_rows(8 * F))
+    keys, n_rows = _keys(name, _tile_shape(8 * F).R)
     keys = keys.astype(np.int32)
     G, K = keys.shape
     rng = np.random.default_rng(100 + F)
@@ -290,7 +339,7 @@ def test_factor_tiles_match_float64_and_jax(name, dtype, F):
             jnp.asarray(wgt_np[g:g + 1][:, :, m]), jnp.asarray(keys[g:g + 1][:, m]),
             n_rows, F)
 
-    _check(name, terms, keys, n_rows, jax_fn)
+    _check(name, terms, keys, n_rows, jax_fn, _tile_shape(8 * F))
 
 
 def test_emulation_uses_the_kernel_constants():
@@ -303,3 +352,18 @@ def test_emulation_uses_the_kernel_constants():
     # V = 16 (B4 at F = 2): 2 plane groups of 8, 4 pieces; V = 32 and 64:
     # 4 groups, 2 pieces; V <= 8: one group, 8 pieces
     assert [_pieces(V) for V in (1, 8, 16, 32, 64)] == [8, 8, 4, 2, 2]
+    # B3: sparse tiles of 1,024 rows (512 at F = 8, so that the
+    # accumulator and a long window's row bounds fit 32 KB), dense tiles of
+    # 128; a short-window cut of 8 sparse tile rows' worth (the hashed
+    # levels hold ~2 entries a row); one plane group, 8 pieces
+    assert [tss.row_tile_rows(F, False) for F in (1, 2, 4, 8)] == [1024, 1024, 1024, 512]
+    assert [tss.row_tile_rows(F, True) for F in (1, 2, 4, 8)] == [128] * 4
+    assert all(tss.row_tile_rows(F, d) * (F + 2) <= tss.TILE_FLOATS
+               for F in (1, 2, 4, 8) for d in (False, True))
+    assert tss.ROW_SHORT_WINDOW == 8192 and tss.ROW_SHORT_WINDOW % CHUNK == 0
+    assert [_pieces(F) for F in (1, 2, 4, 8)] == [8] * 4
+    # the dense tiles where a sparse tile's window would average over C:
+    # the XOR path's merged dense levels (~12 entries a row), not its
+    # hashed group (~2)
+    assert tss.row_tiles_dense(2, 6 * 917504, 467152)
+    assert not tss.row_tiles_dense(2, 917504, 524288)

@@ -117,11 +117,11 @@ def run_steps(trainer, state, n):
 
 
 # the port's kernels by a part of their device function names (every
-# launch of a call: B1 and B4 run a chunk and a tile launch per call)
+# launch of a call: B1, B3 and B4 run a chunk and a tile launch per call)
 PORT_KERNELS = {
     "B1 segment_sum_sorted": ("TransposedLoader",),
     "B2 fused_adam": ("fused_adam_kernel",),
-    "B3 segment_sum_rows": ("RowLoader", "scan_boundary_kernel"),
+    "B3 segment_sum_rows": ("RowLoader",),
     "B4 segment_sum_factors": ("FactorLoader",),
     "B5 widen_slabs": ("widen_slabs_kernel",),
 }

@@ -43,6 +43,10 @@ template <int VF>
 struct TransposedLoader {
   static constexpr int kWidth = VF;
   static constexpr int kSlice = tiles::scan_planes(VF);
+  static constexpr int kRows = tiles::tile_rows(VF);
+  static constexpr int kShortWindow = tiles::kShortWindow;
+  static constexpr int kPrefetch = 0;
+  static constexpr bool kRowMajor = false;
   const float* vals;
   long long K;
 
@@ -56,8 +60,8 @@ struct TransposedLoader {
 
 }  // namespace
 
-// The core's constants: the wrappers and the CPU emulation of the
-// algorithm read them (ops/segment_sum.py).
+// The core's constants for B1 and B4: the wrappers and the CPU emulation
+// of the algorithm read them (ops/segment_sum.py).
 extern "C" int vn_segment_tiles_rows(int V) { return tiles::tile_rows(V); }
 extern "C" int vn_segment_tiles_short_window() { return tiles::kShortWindow; }
 extern "C" int vn_segment_tiles_chunk() { return tiles::kChunk; }

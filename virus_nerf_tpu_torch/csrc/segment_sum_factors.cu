@@ -30,8 +30,8 @@
 // The product of two bf16 values is exact in float32, so that is one
 // rounding, as in PyTorch's bf16 multiply.  Sums are float32.
 //
-// The first design (on the core of segment_scan.cuh) zero-filled the
-// output and then stored each run's 8F sums as 8F separate 4-byte stores,
+// The first design (on a chunked segmented scan, since removed) zero-filled
+// the output and then stored each run's 8F sums as 8F separate 4-byte stores,
 // one per plane: on the hashed levels (~0.25 samples per row) nearly every
 // store landed alone in its 32-byte sector, and the output was written
 // twice.
@@ -67,6 +67,10 @@ struct FactorLoader {
   static constexpr int kWidth = 8 * F;
   static constexpr int kSlice = tiles::scan_planes(kWidth);  // 8
   static constexpr int kFeats = kSlice / 8;  // features of one plane group
+  static constexpr int kRows = tiles::tile_rows(kWidth);
+  static constexpr int kShortWindow = tiles::kShortWindow;
+  static constexpr int kPrefetch = 0;
+  static constexpr bool kRowMajor = false;
   const T* wgt;
   long long K;
 

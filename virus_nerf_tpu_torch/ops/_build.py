@@ -56,10 +56,10 @@ _SIGNATURES = {
     "vn_segment_tiles_chunk": (),
     "vn_segment_tiles_planes": (),
     "vn_segment_tiles_scan_planes": (),
-    # vals, keys, out, head_key, tail_key, head_sum, tail_sum, G, F, K,
-    # n_rows, stream
-    "vn_segment_sum_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
-    "vn_segment_sum_rows_chunk": (),
+    # vals, keys, out, part, starts, G, F, K, n_rows, dense, stream
+    "vn_segment_sum_rows": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    "vn_segment_rows_tile_rows": (_I, _I),
+    "vn_segment_rows_short_window": (),
     # wgt, is_bf16, keys, out, part, starts, G, F, K, n_rows, stream
     "vn_segment_sum_factors": (_P, _I, _P, _P, _P, _P, _I, _I, _L, _I, _P),
     # table, is_bf16, out, row0, size, G, F, corner_offsets, stream

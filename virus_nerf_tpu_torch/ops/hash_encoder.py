@@ -51,8 +51,9 @@ rows in float32 (no bf16 rounding) and the backward segment-sums the
 (8N, F) corner stream of each level in row-major form
 (``group_segment_sum_t_sorted``, the CUDA kernel
 ``csrc/segment_sum_rows.cu`` on the card): one call for the merged run of
-single-size dense levels, one per group of same-size levels, so two
-launches per backward at the reference's 16 x 2 layout.
+single-size dense levels, one per group of same-size levels, so two calls
+per backward at the reference's 16 x 2 layout, each writing its block of
+the table gradient in place.
 """
 
 from __future__ import annotations
@@ -588,9 +589,8 @@ def xor_table_grad_streams(spec: HashGridSpec, rows, w, g):
     (hash_encoder.py:984-1011).
 
     Yields ``(sv, sk, n_rows)``: the (G, K, F) values and (G, K) int32
-    sorted keys of one ``group_segment_sum_t_sorted`` call.  Its (G, F,
-    n_rows) output, transposed to (G, n_rows, F), is the gradient of the
-    next G * n_rows table rows.
+    sorted keys of one ``group_segment_sum_t_sorted`` call.  Its (G,
+    n_rows, F) storage is the gradient of the next G * n_rows table rows.
     """
     F = spec.feat_dim
     L, _, n = rows.shape
@@ -633,11 +633,19 @@ def xor_table_grad_streams(spec: HashGridSpec, rows, w, g):
 
 
 def _xor_table_grad(spec: HashGridSpec, rows, w, g):
-    blocks = []
+    """The (total_rows, F) table gradient: each segment sum writes its
+    block of table rows in place (every row of the block)."""
+    F = spec.feat_dim
+    grad = torch.empty((spec.total_rows, F), dtype=torch.float32,
+                       device=rows.device)
+    r0 = 0
     for sv, sk, n_rows in xor_table_grad_streams(spec, rows, w, g):
-        out = group_segment_sum_t_sorted(sv, sk, n_rows)  # (G, F, n_rows)
-        blocks.append(out.transpose(1, 2).reshape(-1, spec.feat_dim))
-    return torch.cat(blocks, dim=0)  # (total_rows, F)
+        G = sk.shape[0]
+        block = grad[r0:r0 + G * n_rows].view(G, n_rows, F)
+        group_segment_sum_t_sorted(sv, sk, n_rows, out=block)
+        r0 += G * n_rows
+    assert r0 == spec.total_rows, "the streams cover every table row"
+    return grad
 
 
 class _HashEncodeXor(torch.autograd.Function):

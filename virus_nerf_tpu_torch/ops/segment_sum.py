@@ -1,7 +1,7 @@
 """Dense segment sums over key-sorted streams.
 
 Three forms of the value stream, each with its CUDA kernel (design, bound
-and the deliberate differences from the TPU kernel are in each header) and
+and the deliberate differences from the TPU kernel are in each source) and
 its plain PyTorch version, one ``index_add_``:
 
 - transposed (G, VF, K): ``segment_sum_sorted``, counterpart of
@@ -12,21 +12,26 @@ its plain PyTorch version, one ``index_add_``:
   function of that name (:725), TPU kernel ``_t_kernel`` (:101), CUDA
   ``csrc/segment_sum_rows.cu``; with ``group_segment_sum_t`` (:748, sorts
   first) and ``windowed_segment_sum`` (:769, one stream); the XOR hash
-  encoder's backward;
+  encoder's backward.  Its sums are stored as (G, n_rows, F) rows, the
+  table's layout, and returned as the transposed view; ``out=`` takes the
+  block of a larger table gradient;
 - fused factors (G, 8+F, K): ``group_segment_sum_tsf_sorted``, counterpart
   of the function of that name (:504), TPU kernel ``_tsf_kernel`` (:333),
   CUDA ``csrc/segment_sum_factors.cu``; the values ``w[c] * g[f]`` are
   formed from the sorted corner weights and gradients inside the kernel;
   the additive hash encoder's ``factors`` backward.
 
-The transposed and factor kernels share the row-tile core
-``csrc/segment_tiles.cuh``: a first launch finds each tile's window of the
-stream and leaves per-run partials of every ``TILE_CHUNK``-entry chunk
-that a long window reaches; then one CTA owns :func:`tile_rows` rows,
-sums its window (at most ``SHORT_WINDOW`` entries) by warp scans into
-shared memory, or joins the partials of a longer one, and stores its tile
-once.  Its constants are below (the C side reports its own:
-``vn_segment_tiles_rows`` and the like); the wrappers allocate the
+All three kernels share the row-tile core ``csrc/segment_tiles.cuh``: a
+first launch finds each tile's window of the stream and leaves per-run
+partials of every ``TILE_CHUNK``-entry chunk that a long window reaches;
+then one CTA owns a tile of rows, sums its window (at most a short-window
+cut of entries) by warp scans into shared memory, or joins the partials
+of a longer one, and stores its tile once.  The transposed and factor
+kernels take :func:`tile_rows` rows and ``SHORT_WINDOW``; the row-major
+kernel :func:`row_tile_rows` (of two sizes, by :func:`row_tiles_dense`)
+and ``ROW_SHORT_WINDOW``.  The constants are
+below (the C side reports its own: ``vn_segment_tiles_rows``,
+``vn_segment_rows_tile_rows`` and the like); the wrappers allocate the
 scratch (:func:`_tile_scratch`).
 """
 
@@ -53,18 +58,42 @@ TILE_PLANES = 32
 SCAN_PLANES = 8
 TILE_FLOATS = 8192
 MAX_TILE_ROWS = 512
+# the row-major kernel's tiles (csrc/segment_sum_rows.cu): the rows of a
+# sparse stream's tiles and of a dense stream's, and the short-window cut
+ROW_SPARSE_ROWS = 1024
+ROW_DENSE_ROWS = 128
+ROW_SHORT_WINDOW = 8192
 
 
 def tile_rows(V: int) -> int:
-    """Output rows a CTA of the row-tile core owns for V planes."""
+    """Output rows a CTA of the transposed or factor kernel owns for V
+    planes."""
     return min(MAX_TILE_ROWS, TILE_FLOATS // min(V, TILE_PLANES))
 
 
-def _tile_scratch(G: int, K: int, V: int, n_rows: int, device):
-    """Scratch of the row-tile core: the chunk partials (G, K, V) float32,
-    read only where the first launch wrote them, and each tile's first
-    stream entry (G, n_tiles + 1) int64."""
-    n_tiles = -(-n_rows // tile_rows(V))
+def row_tile_rows(F: int, dense: bool) -> int:
+    """Output rows a CTA of the row-major kernel owns at F features:
+    ``ROW_DENSE_ROWS`` or ``ROW_SPARSE_ROWS`` at most, and the largest
+    power of two whose accumulator (F floats a row) and row bounds (8
+    bytes a row) fit ``TILE_FLOATS`` floats."""
+    fit = TILE_FLOATS // (F + 2)
+    cap = ROW_DENSE_ROWS if dense else ROW_SPARSE_ROWS
+    return min(cap, 1 << (fit.bit_length() - 1))
+
+
+def row_tiles_dense(F: int, K: int, n_rows: int) -> bool:
+    """Does a stream of K entries a group over n_rows rows take the dense
+    tiles?  Where a sparse tile's window would hold more than
+    ``ROW_SHORT_WINDOW`` entries on average, every tile would join chunk
+    partials; smaller tiles spread that work over more CTAs."""
+    return K * row_tile_rows(F, False) > ROW_SHORT_WINDOW * n_rows
+
+
+def _tile_scratch(G: int, K: int, V: int, n_rows: int, R: int, device):
+    """Scratch of the row-tile core at tiles of R rows: the chunk partials
+    (G, K, V) float32, read only where the first launch wrote them, and
+    each tile's first stream entry (G, n_tiles + 1) int64."""
+    n_tiles = -(-n_rows // R)
     return (torch.empty((G, K, V), dtype=torch.float32, device=device),
             torch.empty((G, n_tiles + 1), dtype=torch.int64, device=device))
 
@@ -121,7 +150,7 @@ def _segment_sum_sorted_cuda(vals, keys, n_rows: int):
     if not (vals.is_contiguous() and keys.is_contiguous()):
         raise ValueError("segment_sum_sorted: vals and keys must be contiguous")
     out = torch.empty((G, VF, n_rows), dtype=torch.float32, device=vals.device)
-    part, starts = _tile_scratch(G, K, VF, n_rows, vals.device)
+    part, starts = _tile_scratch(G, K, VF, n_rows, tile_rows(VF), vals.device)
     err = _build.library().vn_segment_sum_sorted(
         vals.data_ptr(), keys.data_ptr(), out.data_ptr(), part.data_ptr(),
         starts.data_ptr(), G, VF, K, n_rows,
@@ -157,25 +186,31 @@ segment_sum_sorted.launches = 0
 
 
 # ------------------------------------------------------- row-major streams
-def group_segment_sum_t_sorted_plain(sv, sk, n_rows: int):
+def group_segment_sum_t_sorted_plain(sv, sk, n_rows: int, out=None):
     """Plain PyTorch version: one ``index_add_`` over the flattened groups.
 
     Args:
         sv: (G, K, F) float32 values, each group sorted by its key.
         sk: (G, K) int32 row ids in [0, n_rows), sorted per group.
+        out: optional contiguous (G, n_rows, F) float32 storage, zeroed and
+            summed into.
     Returns:
-        (G, F, n_rows) float32 sums.
+        (G, F, n_rows) float32 sums: the transposed view of (G, n_rows, F)
+        storage (``out`` where given).
     """
     G, K, F = sv.shape
     idx = sk.long() + n_rows * torch.arange(
         G, device=sk.device, dtype=torch.long
     )[:, None]
-    out = sv.new_zeros(G * n_rows, F)
-    out.index_add_(0, idx.reshape(-1), sv.reshape(G * K, F))
-    return out.view(G, n_rows, F).transpose(1, 2)
+    if out is None:
+        out = sv.new_zeros(G, n_rows, F)
+    else:
+        out.zero_()
+    out.view(G * n_rows, F).index_add_(0, idx.reshape(-1), sv.reshape(G * K, F))
+    return out.transpose(1, 2)
 
 
-def _check_rows_args(sv, sk, n_rows: int):
+def _check_rows_args(sv, sk, n_rows: int, out):
     name = "group_segment_sum_t_sorted"
     if sv.dtype != torch.float32 or sk.dtype != torch.int32:
         raise TypeError(
@@ -191,9 +226,18 @@ def _check_rows_args(sv, sk, n_rows: int):
         raise ValueError(f"{name}: values on {sv.device}, keys on {sk.device}")
     if not 0 <= n_rows < 2**31 - 1:
         raise ValueError(f"{name}: bad n_rows {n_rows}")
+    if out is not None:
+        G, _, F = sv.shape
+        if (out.dtype != torch.float32 or tuple(out.shape) != (G, n_rows, F)
+                or not out.is_contiguous() or out.device != sv.device):
+            raise ValueError(
+                f"{name}: out must be contiguous float32 ({G}, {n_rows}, {F}) "
+                f"on {sv.device}, got {out.dtype} {tuple(out.shape)} on "
+                f"{out.device}"
+            )
 
 
-def _group_segment_sum_t_sorted_cuda(sv, sk, n_rows: int):
+def _group_segment_sum_t_sorted_cuda(sv, sk, n_rows: int, out):
     G, K, F = sv.shape
     if F not in ROW_KERNEL_WIDTHS:
         raise ValueError(
@@ -203,42 +247,47 @@ def _group_segment_sum_t_sorted_cuda(sv, sk, n_rows: int):
     if not (sv.is_contiguous() and sk.is_contiguous()):
         raise ValueError("group_segment_sum_t_sorted: values and keys must be "
                          "contiguous")
-    lib = _build.library()
-    chunk = lib.vn_segment_sum_rows_chunk()
-    n_chunks = max(1, -(-K // chunk))
-    dev = sv.device
-    out = torch.empty((G, F, n_rows), dtype=torch.float32, device=dev)
-    # per chunk: the keys and sums of its first and last run
-    bkeys = torch.empty((2, G, n_chunks), dtype=torch.int32, device=dev)
-    bsums = torch.empty((2, G, n_chunks, F), dtype=torch.float32, device=dev)
+    if sv.data_ptr() % (4 * F):
+        sv = sv.clone()  # the loader reads an entry's F floats as one vector
+    dev, lib = sv.device, _build.library()
+    if out is None:
+        out = torch.empty((G, n_rows, F), dtype=torch.float32, device=dev)
+    dense = row_tiles_dense(F, K, n_rows)
+    # the tile rows of the library that runs (row_tile_rows for the port's
+    # own; a card test compares them)
+    part, starts = _tile_scratch(G, K, F, n_rows,
+                                 lib.vn_segment_rows_tile_rows(F, dense), dev)
     err = lib.vn_segment_sum_rows(
-        sv.data_ptr(), sk.data_ptr(), out.data_ptr(), bkeys[0].data_ptr(),
-        bkeys[1].data_ptr(), bsums[0].data_ptr(), bsums[1].data_ptr(),
-        G, F, K, n_rows, torch.cuda.current_stream(dev).cuda_stream,
+        sv.data_ptr(), sk.data_ptr(), out.data_ptr(), part.data_ptr(),
+        starts.data_ptr(), G, F, K, n_rows, int(dense),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "vn_segment_sum_rows")
     group_segment_sum_t_sorted.launches += 1
-    return out
+    return out.transpose(1, 2)
 
 
-def group_segment_sum_t_sorted(sv, sk, n_rows: int):
+def group_segment_sum_t_sorted(sv, sk, n_rows: int, out=None):
     """``out[g, f, r] = sum_{i: sk[g, i] == r} sv[g, i, f]``.
 
     A CUDA tensor launches ``csrc/segment_sum_rows.cu`` (or raises); a CPU
     tensor takes :func:`group_segment_sum_t_sorted_plain`.  ``.launches``
-    counts kernel launches.
+    counts the calls that launched the kernel (two launches each).
 
     Args:
         sv: (G, K, F) float32 values, each group sorted by its key.
         sk: (G, K) int32 sorted row ids in [0, n_rows).
+        out: optional contiguous (G, n_rows, F) float32 storage to write
+            (every element is written), e.g. a block of a table gradient.
     Returns:
-        (G, F, n_rows) float32 sums, the table axis last as in JAX.
+        (G, F, n_rows) float32 sums, the table axis last as in JAX: the
+        transposed view of (G, n_rows, F) storage (``out`` where given).
     """
-    _check_rows_args(sv, sk, n_rows)
+    _check_rows_args(sv, sk, n_rows, out)
     if sv.is_cuda:
-        return _group_segment_sum_t_sorted_cuda(sv, sk, n_rows)
+        return _group_segment_sum_t_sorted_cuda(sv, sk, n_rows, out)
     if sv.device.type == "cpu":
-        return group_segment_sum_t_sorted_plain(sv, sk, n_rows)
+        return group_segment_sum_t_sorted_plain(sv, sk, n_rows, out)
     raise ValueError(f"group_segment_sum_t_sorted: unsupported device {sv.device}")
 
 
@@ -332,7 +381,7 @@ def _group_segment_sum_tsf_sorted_cuda(wgt, sk, n_rows: int, feat_dim: int):
                          "be contiguous")
     dev, V = wgt.device, 8 * feat_dim
     out = torch.empty((G, V, n_rows), dtype=torch.float32, device=dev)
-    part, starts = _tile_scratch(G, K, V, n_rows, dev)
+    part, starts = _tile_scratch(G, K, V, n_rows, tile_rows(V), dev)
     err = _build.library().vn_segment_sum_factors(
         wgt.data_ptr(), int(wgt.dtype == torch.bfloat16), sk.data_ptr(),
         out.data_ptr(), part.data_ptr(), starts.data_ptr(), G, feat_dim, K,

@@ -172,12 +172,15 @@ class Trainer:
         self.logs: Dict[str, list] = {"time": [], "step": []}
 
     def _sample_budget(self) -> Optional[int]:
-        """The compacted-sample budget; "auto" (None) compacts constant-dt
-        configs to 32 samples per ray (trainer.py:222-243)."""
+        """The compacted-sample budget, or None for the dense layout.  As
+        the JAX trainer (trainer.py:222-243): "auto" (None) compacts
+        constant-dt configs (``exp_step_factor == 0``) to 32 samples per
+        ray and leaves exponential-stepping ones dense; 0 opts out."""
         t = self.cfg.training
         budget = t.sample_budget
         if budget is None:
-            budget = t.batch_size * min(32, t.max_samples_per_ray)
+            dense = self.cfg.exp_step_factor != 0.0
+            budget = 0 if dense else t.batch_size * min(32, t.max_samples_per_ray)
         return budget if budget > 0 else None
 
     # ------------------------------------------------------------------ init
