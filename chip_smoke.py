@@ -54,7 +54,23 @@ Phases, each printed as it finishes; any failure exits non-zero:
     step; B5 bit-exact against its plain version, and timed, on the
     trained table's bf16 slab groups, each and per forward;
 11. one small-config step on the card against the CPU for slabs+factors
-    and for the ``mixed`` and ``bfloat16`` compute modes.
+    and for the ``mixed`` and ``bfloat16`` compute modes;
+12. the scale-1.0 path: the bench configuration at ``model.scale = 1.0``
+    (two cascades, exponential stepping with exp_step_factor 1/256, the
+    one-row VIRUS grid marched past its end as the JAX package does) on 16
+    of 24 images, 48 steps: finite, falling loss; B1, B2 and the lattice
+    kernel (``csrc/march_lattice.cu``) launched, B2 and the lattice once a
+    step; ms/step and rays/s over steps 16-48, launches a step, peak
+    memory; B1 at the keys of its last step; the lattice kernel bit-exact
+    against its plain loop at 4096 x 1024 on the path's own rays, and
+    timed; then ``Evaluator.evaluate`` on the 8 held-out images;
+13. the NGP path: the same at scale 1.0 with ``model.grid_type="ngp"`` (a
+    2 x 128^3 grid, a warm-up update at step 0 and a steady one at step
+    16), the distortion loss, "closest" pixels with the USS statistics and
+    real-time simulation, 32 steps; B1, B2 and the lattice launched, B2 and
+    the lattice once a step;
+14. one small-config step on the card against the CPU at scale 1.0, with
+    the NGP grid (its warm-up update too) and with the distortion loss.
 
 The line before the last is the card's name and power limit (nvidia-smi);
 before it, one JSON line with the kernels' results.  The last line is
@@ -229,7 +245,7 @@ def check_out_of_range(dev, layout):
 
 def ptxas_report(lib_path, sources=("segment_sum.cu", "segment_sum_rows.cu",
                                     "segment_sum_factors.cu", "fused_adam.cu",
-                                    "widen_slabs.cu")):
+                                    "widen_slabs.cu", "march_lattice.cu")):
     """Registers and spills of every kernel of ``sources``, from the
     ``-Xptxas -v`` report of the build."""
     from virus_nerf_tpu_torch.ops import _build
@@ -605,20 +621,34 @@ def check_adam_per_step(name, launches, steps):
 
 
 # ------------------------------------------------------- small reference
+def grid_to(grid, dev):
+    """A grid state (VIRUS or NGP) with its tensors moved to ``dev``."""
+    return type(grid)(*(x.to(dev) if torch.is_tensor(x) else x for x in grid))
+
+
 def reference_step(dev, hash_variant: str, dtype: str = "float32",
-                   ref=torch.device("cpu"), **routes):
+                   ref=torch.device("cpu"), scale: float = 0.5,
+                   grid_type: str = "occ", distortion: float = 0.0, **routes):
     """One grid update + train step of a small config on the card and on
     the CPU (plain versions) from the same weights and draws.  The 16 x 2
     layouts (XOR, and the additive routes and compute modes) take levels of
-    up to 2^17 rows, so the additive hashed group has bf16 slabs."""
+    up to 2^17 rows, so the additive hashed group has bf16 slabs.  At
+    ``scale`` 1.0 the march steps exponentially over two cascades (the
+    lattice kernel on the card); the NGP grid's update is its warm-up."""
     from virus_nerf_tpu_torch.configs.config import Config
     from virus_nerf_tpu_torch.data.dataset import Batch, sample_batch
     from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
-    from virus_nerf_tpu_torch.training.trainer import Trainer
+    from virus_nerf_tpu_torch.grids.ngp_grid import ngp_cell_draws
+    from virus_nerf_tpu_torch.training.trainer import (
+        NGP_DENSITY_THRESHOLD,
+        Trainer,
+    )
 
     cfg = Config()
     m, t = cfg.model, cfg.training
     m.hash_variant, m.dtype = hash_variant, dtype
+    m.scale, m.grid_type = scale, grid_type
+    t.distortion_loss_w = distortion
     # tables of 8 x 4 levels of up to 2^16 rows or 16 x 2 of up to 2^16
     # (XOR) or 2^17 rows: over 2^20 elements, so the Adam kernel runs
     wide = hash_variant == "xor" or routes or dtype != "float32"
@@ -640,7 +670,7 @@ def reference_step(dev, hash_variant: str, dtype: str = "float32",
     sc = tc.init_state(0)
     sg = tg.init_state(0)
     sg.model.load_state_dict({k: v.to(dev) for k, v in sc.model.state_dict().items()})
-    sg.grid = type(sc.grid)(sc.grid.occ_3d_grid.to(dev), sc.grid.occ_bool.to(dev), 0)
+    sg.grid = grid_to(sc.grid, dev)
 
     gen = torch.Generator()
     gen.manual_seed(5)
@@ -654,13 +684,24 @@ def reference_step(dev, hash_variant: str, dtype: str = "float32",
         return Batch(*[{k: v.to(dev) for k, v in x.items()} if isinstance(x, dict)
                        else x.to(dev) for x in b])
 
-    tc.grid_update_on(sc, ray_b, nerf_b, pos_noise)
-    tg.grid_update_on(sg, to(ray_b), to(nerf_b), pos_noise.to(dev))
-    grid_diff = (sg.grid.occ_3d_grid.cpu() - sc.grid.occ_3d_grid).abs()
+    if grid_type == "occ":
+        tc.grid_update_on(sc, ray_b, nerf_b, pos_noise)
+        tg.grid_update_on(sg, to(ray_b), to(nerf_b), pos_noise.to(dev))
+        grid_diff = (sg.grid.occ_3d_grid.cpu() - sc.grid.occ_3d_grid).abs()
+    else:
+        # the warm-up update: every cell of both cascades, the same jitter
+        draws = ngp_cell_draws(sc.grid, gen, warmup=True,
+                               density_threshold=NGP_DENSITY_THRESHOLD,
+                               grid_size=m.grid_size)
+        tc.ngp_update_on(sc, draws)
+        tg.ngp_update_on(sg, [(i.to(dev), j.to(dev)) for i, j in draws])
+        # densities relative to their size: float32 model on two devices
+        grid_diff = ((sg.grid.density_grid.cpu() - sc.grid.density_grid).abs()
+                     / sc.grid.density_grid.abs().clamp(min=1.0))
     grid_err = float(grid_diff.max())
     grid_off = float((grid_diff > 1e-5).float().mean())
     # the step marches both on the same boolean grid
-    sg.grid = type(sc.grid)(sc.grid.occ_3d_grid.to(dev), sc.grid.occ_bool.to(dev), 1)
+    sg.grid = grid_to(sc.grid, dev)
     mc = tc.train_step_on(sc, batch, noise)
     mg = tg.train_step_on(sg, to(batch), noise.to(dev))
     loss_c, loss_g = float(mc["loss"]), float(mg["loss"])
@@ -679,13 +720,19 @@ def reference_step(dev, hash_variant: str, dtype: str = "float32",
     bf16 = dtype != "float32"
     loss_tol, flip_tol = (1e-3, 5e-3) if bf16 else (1e-4, 2e-3)
     grid_ok = grid_off <= 1e-3 if bf16 else grid_err <= 1e-5
+    grid_tol = "share 1e-3" if bf16 else "max 1e-5"
+    if grid_type == "ngp":
+        # a density relative to max(1, itself): the MLP's float32 products
+        # in another order on each device
+        grid_ok, grid_tol = grid_err <= 1e-4, "max 1e-4 relative"
     step_tol = 2 * t.lr * (1 + 1e-5) + (
         2.0**-7 * float(sc.model.pos_table.detach().float().abs().max())
         if sc.model.pos_table.dtype == torch.bfloat16 else 0.0)
-    label = f"{hash_variant} {dtype} {routes or 'default routes'}"
+    label = (f"{hash_variant} {dtype} {routes or 'default routes'} scale "
+             f"{scale} {grid_type} grid distortion {distortion:g}")
     log(f"reference step ({label} small config, card vs CPU): grid "
         f"max_abs_err {grid_err:.3e}, cells off by > 1e-5 {grid_off:.2e} "
-        f"(tol {'share 1e-3' if bf16 else 'max 1e-5'}), loss {loss_g:.6f} vs "
+        f"(tol {grid_tol}), loss {loss_g:.6f} vs "
         f"{loss_c:.6f} rel {rel:.2e} (tol {loss_tol:g}), rm "
         f"{int(mg['rm_samples'])} vs {int(mc['rm_samples'])}, table entries "
         f"off by > 1e-6: {flipped:.2e} (tol {flip_tol:g}: Adam sign steps of "
@@ -734,31 +781,38 @@ def read_counts(wrappers):
     return {name: w.launches for name, w in wrappers.items()}
 
 
-def check_training(name, trainer, state, n_steps, first_steady):
-    """Finite, falling loss over the run; returns steady-state ms/step from
-    the chunk-end times (each after a device sync) after ``first_steady``."""
+def check_training(name, trainer, state, n_steps, first_steady, falls=True):
+    """Finite loss over the run, falling unless ``falls`` is False; returns
+    steady-state ms/step from the chunk-end times (each after a device
+    sync) after ``first_steady``."""
     logs = trainer.logs
     losses = np.asarray(logs["loss"])
     steps = np.asarray(logs["step"])
     times = np.asarray(logs["time"])
     i0, i1 = int(np.where(steps == first_steady - 1)[0][0]), len(steps) - 1
     step_s = (times[i1] - times[i0]) / (steps[i1] - steps[i0])
+    occupied = float(state.grid.occ_bool.float().mean())
+    updates = getattr(state.grid, "update_step", "-")
     log(f"{name}: loss first {losses[0]:.4f} last {losses[-1]:.4f}; mean of "
         f"the first 8 steps {losses[:8].mean():.4f}, the last 8 "
         f"{losses[-8:].mean():.4f}; psnr last {logs['psnr'][-1]:.2f}; "
         f"rm_samples last {int(logs['rm_samples'][-1])}; vr_samples last "
         f"{int(logs['vr_samples'][-1])}; overflow last "
-        f"{int(logs['overflow'][-1])}; grid updates {state.grid.update_step}; "
-        f"occupied cells {float(state.grid.occ_bool.float().mean()):.4f}")
+        f"{int(logs['overflow'][-1])}; grid updates {updates}; "
+        f"occupied cells {occupied:.4f}")
     if state.step != n_steps or len(losses) != n_steps:
         fail(f"{name}: ran {state.step} steps, logged {len(losses)}, want {n_steps}")
     if not np.all(np.isfinite(losses)):
         fail(f"{name}: non-finite loss")
-    if not losses[-8:].mean() < losses[:8].mean():
+    if falls and not losses[-8:].mean() < losses[:8].mean():
         fail(f"{name}: loss did not fall over {n_steps} steps")
     want_updates = -(-n_steps // trainer.grid_update_interval)
-    if state.grid.update_step != want_updates:
-        fail(f"{name}: {state.grid.update_step} grid updates, want {want_updates}")
+    if updates == "-":  # the NGP grid keeps no count: its densities moved
+        if not 0.0 < occupied < 1.0 or not bool(
+                (state.grid.density_grid > 0).any()):
+            fail(f"{name}: NGP grid not updated (occupied share {occupied})")
+    elif updates != want_updates:
+        fail(f"{name}: {updates} grid updates, want {want_updates}")
     if not torch.isfinite(state.model.pos_table).all():
         fail(f"{name}: non-finite hash table")
     return step_s
@@ -814,6 +868,137 @@ def run_quality_path(name, argv, wrappers, card):
     return out, trainer, state, launches, seen["xyz"]
 
 
+# ------------------------------------------------ the exponential-step paths
+def scale1_config():
+    """The bench configuration at ``model.scale = 1.0``
+    (``VNERF_BENCH_SCALE=1.0``, bench.py:313-316): two cascades,
+    exp_step_factor 1/256, the budget 4096 * 28 kept."""
+    cfg = bench_config()
+    cfg.model.scale = 1.0
+    return cfg
+
+
+def ngp_config():
+    """The scale-1.0 configuration on the NGP grid (2 x 128^3; a warm-up
+    update at step 0, a steady one at step 16) with the distortion loss,
+    "closest" pixels and real-time simulation, 32 steps."""
+    cfg = scale1_config()
+    cfg.model.grid_type = "ngp"
+    cfg.ngp_grid.update_interval, cfg.ngp_grid.warmup_steps = 16, 16
+    cfg.training.distortion_loss_w = 1e-3
+    cfg.training.sampling_strategy = {
+        "imgs": "all",
+        "pixs": {"closest": 0.2, "valid_uss": 0.3, "valid_tof": 0.3},
+    }
+    cfg.training.real_time_simulation = True
+    cfg.training.max_steps = 32
+    return cfg
+
+
+def run_path(name, trainer, n_steps, first_steady, wrappers, card):
+    """Train from a seeded init with the kernel counts set to 0 just before
+    and read just after; returns (state, launches, positions of the last
+    step, seconds of the whole run).  Under real-time simulation the loss
+    is not held to fall: images join the batches as the clock runs."""
+    state = trainer.init_state()
+    seen = {}
+    hook = state.model.register_forward_pre_hook(
+        lambda mod, args: seen.update(xyz=args[0].detach()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    tic = time.perf_counter()
+    state = trainer.train(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = read_counts(wrappers)
+    hook.remove()
+    step_s = check_training(
+        name, trainer, state, n_steps, first_steady,
+        falls=not trainer.cfg.training.real_time_simulation)
+    per_step = {k: v / n_steps for k, v in launches.items() if v}
+    log(f"{name}: {state.step} steps in {wall:.2f} s (incl. first-step "
+        f"warm-up); steady state steps {first_steady}-{n_steps}: "
+        f"{1e3 * step_s:.2f} ms/step, "
+        f"{trainer.cfg.training.batch_size / step_s:.0f} rays/s on {card}")
+    log(f"{name}: kernel launches {launches}, a step {per_step}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches["march_lattice"] != n_steps:
+        fail(f"{name}: {launches['march_lattice']} lattice launches over "
+             f"{n_steps} steps, want one a march")
+    check_launched(name, launches, ("segment_sum", "fused_adam", "march_lattice"))
+    check_adam_per_step(name, launches, n_steps)
+    return state, launches, seen["xyz"], wall
+
+
+def check_lattice(dev, dataset, cfg):
+    """The lattice kernel against its plain loop, bit for bit, on the rays
+    of a batch the scale-1.0 path draws (4096 x 1024), and timed.  No
+    PyTorch call computes the recurrence (library_ms None)."""
+    from virus_nerf_tpu_torch.data.dataset import sample_batch
+    from virus_nerf_tpu_torch.ops.intersection import ray_aabb_intersect
+    from virus_nerf_tpu_torch.ops.ray_march import (
+        march_lattice,
+        march_lattice_plain,
+    )
+
+    t = cfg.training
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    b = sample_batch(dataset, gen, t.batch_size, t.sampling_strategy)
+    t1 = ray_aabb_intersect(b.rays_o, b.rays_d, cfg.model.scale)[:, 0].contiguous()
+    noise = torch.rand(t.batch_size, generator=gen, device=dev)
+    args = (t1, noise, cfg.exp_step_factor, cfg.model.grid_size,
+            cfg.model.scale, t.march_candidates, t.march_resolution)
+    ts, dts = march_lattice(*args)
+    want_ts, want_dts = march_lattice_plain(*args)
+    torch.cuda.synchronize()
+    ok = torch.equal(ts, want_ts) and torch.equal(dts, want_dts)
+    err = max(float((ts - want_ts).abs().max()), float((dts - want_dts).abs().max()))
+    ms, plain_ms = time_turns([lambda: march_lattice(*args),
+                               lambda: march_lattice_plain(*args)])
+    dev_ms = device_ms(lambda: march_lattice(*args), "march_lattice_kernel")
+    n, K = t1.numel(), t.march_candidates
+    # ts and dts written once, t1 and noise read once; a multiply and an
+    # add a step
+    b_ms, b_by = bound_ms(8.0 * n * K + 8.0 * n, 2.0 * n * K)
+    log(f"march_lattice: n={n} K={K} esf={cfg.exp_step_factor:g} hits in "
+        f"[{float(t1.min()):.3f}, {float(t1.max()):.3f}]; bit-exact {ok} "
+        f"(max_abs_err {err:.3e}); kernel {ms:.4f} ms (device {dev_ms:.4f}) "
+        f"plain loop {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("march_lattice disagrees with its plain version")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def evaluate_scale1(trainer, state, test_ds, scene, img_wh, card):
+    """``Evaluator.evaluate`` of the trained scale-1.0 map on the held-out
+    images: finite NND of every scan and a finite PSNR."""
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+
+    ev = Evaluator(trainer.cfg, test_ds, scene, img_wh=img_wh,
+                   device=trainer.device)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    m = ev.evaluate(state.model, state.grid.occ_bool,
+                    depth_img_idxs=np.arange(test_ds.n_images),
+                    sensors=("GT", "NeRF", "ToF", "USS"))
+    torch.cuda.synchronize()
+    log(f"scale-1.0 evaluation on {test_ds.n_images} held-out images: "
+        f"{time.perf_counter() - tic:.2f} s; NeRF nn_mean z3 "
+        f"{m['NeRF']['nn_mean']['zone3']:.4f} m, ToF "
+        f"{m['ToF']['nn_mean']['zone3']:.4f} m, USS "
+        f"{m['USS']['nn_mean']['zone3']:.4f} m; psnr {m['NeRF']['psnr']:.3f} "
+        f"ssim {m['NeRF']['ssim']:.4f}; on {card}")
+    nnd = [m[s]["nn_mean"][z] for s in ("NeRF", "ToF", "USS")
+           for z in ("zone1", "zone2", "zone3")]
+    if not (np.all(np.isfinite(nnd)) and np.isfinite(m["NeRF"]["psnr"])):
+        fail(f"scale-1.0 evaluation: non-finite metrics {m}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -840,13 +1025,16 @@ def main() -> None:
         group_segment_sum_tsf_sorted,
         segment_sum_sorted,
     )
+    from virus_nerf_tpu_torch.ops.ray_march import march_lattice
     from virus_nerf_tpu_torch.ops.widen import widen_slabs_group
+    from virus_nerf_tpu_torch.quality_run import subset
     from virus_nerf_tpu_torch.training.trainer import Trainer
 
     wrappers = {"segment_sum": segment_sum_sorted, "fused_adam": adam_update_leaves_,
                 "segment_sum_rows": group_segment_sum_t_sorted,
                 "segment_sum_factors": group_segment_sum_tsf_sorted,
-                "widen_slabs": widen_slabs_group}
+                "widen_slabs": widen_slabs_group,
+                "march_lattice": march_lattice}
 
     # ---- 1. build
     tic = time.perf_counter()
@@ -899,6 +1087,8 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_launched("bench path", bench_launches, ("segment_sum", "fused_adam"))
     check_adam_per_step("bench path", bench_launches, 48)
+    if bench_launches["march_lattice"]:
+        fail("bench path: the constant-dt march launched the lattice kernel")
 
     # ---- 4. B1 at the keys of the bench path's last step
     slice_cases = slice_segment_cases(state.model, seen["xyz"], dev)
@@ -974,10 +1164,66 @@ def main() -> None:
                    hash_backward="factors")
     reference_step(dev, "additive", "bfloat16")
 
+    # ---- 12. the scale-1.0 path: 16 of 24 images, then the held-out 8
+    cfg = scale1_config()
+    dataset, scene, info = make_synthetic_dataset(
+        n_images=24, img_wh=(160, 120), device=dev
+    )
+    sel_train = np.arange(24) % 3 != 0
+    train_ds, test_ds = subset(dataset, sel_train), subset(dataset, ~sel_train)
+    trainer = Trainer(cfg, train_ds, scene=scene, device=dev)
+    state, scale1_launches, xyz, _ = run_path(
+        "scale-1.0 path", trainer, 48, 16, wrappers, card)
+    scale1_cases = slice_segment_cases(state.model, xyz, dev)
+    if [c[0] for c in scale1_cases] != ["slice_merged_dense", "slice_hashed_group"]:
+        fail(f"unexpected hash backward streams {[c[0] for c in scale1_cases]}")
+    b1_scale1 = sum_results([check_segment_sum(*case, layout="ts")
+                             for case in scale1_cases])
+    lattice = check_lattice(dev, train_ds, cfg)
+    evaluate_scale1(trainer, state, test_ds, scene, info["img_wh"], card)
+    del trainer, state, xyz, scale1_cases, dataset, train_ds, test_ds
+    torch.cuda.empty_cache()
+
+    # ---- 13. the NGP path: distortion, closest pixels, real-time simulation
+    cfg = ngp_config()
+    dataset, scene, _ = make_synthetic_dataset(
+        n_images=16, img_wh=(160, 120), device=dev
+    )
+    trainer = Trainer(cfg, dataset, scene=scene, device=dev)
+    state, ngp_launches, _, wall = run_path("NGP path", trainer, 32, 16,
+                                            wrappers, card)
+    if state.grid.occ_bool.shape != (2, 128**3):
+        fail(f"NGP path: grid {tuple(state.grid.occ_bool.shape)}, want 2 x 128^3")
+    # real-time simulation: no image taken after the run's end was drawn
+    # (the "closest" statistics count the batches that held each image)
+    counts = state.uss_stats.counts.cpu().numpy()
+    late = dataset.times.cpu().numpy() > wall
+    log(f"NGP path: {wall:.2f} s of training; images drawn "
+        f"{np.flatnonzero(counts).tolist()}, images taken after {wall:.2f} s "
+        f"{np.flatnonzero(late).tolist()}")
+    if counts.sum() <= 0 or counts[late].any():
+        fail("NGP path: real-time simulation drew an image not yet taken, or "
+             "the USS statistics were never updated")
+    if "loss_distortion" not in trainer.logs:
+        fail("NGP path: no distortion term in the loss")
+    log(f"NGP path: threshold {float(state.grid.threshold):.4f}, USS "
+        f"statistics updated {int(state.uss_stats.counts.sum())} times, "
+        f"distortion term last {trainer.logs['loss_distortion'][-1]:.3e}")
+    del trainer, state, dataset
+    torch.cuda.empty_cache()
+
+    # ---- 14. card against CPU at scale 1.0, with the NGP grid, distortion
+    reference_step(dev, "additive", scale=1.0)
+    reference_step(dev, "additive", scale=1.0, grid_type="ngp")
+    reference_step(dev, "additive", distortion=1e-2)
+
     # ms: the kernel's calls of one step at the keys (B1, B3, B4) or table
-    # (B5) of its path; fused Adam on the 16 x 2 hash table
+    # (B5) of its path; fused Adam on the 16 x 2 hash table; the lattice of
+    # one march of the scale-1.0 path
     paths = {"bench": bench_launches, "xor": xor_launches,
-             "slabs": slabs_launches}
+             "slabs": slabs_launches, "scale1": scale1_launches,
+             "ngp": ngp_launches}
+    steps = {"bench": 48, "xor": 32, "slabs": 32, "scale1": 48, "ngp": 32}
 
     def entry(name, key, source, replaces, main_paths, result, **extra):
         return {"name": name, "route": "cuda",
@@ -985,18 +1231,19 @@ def main() -> None:
                 "replaces": replaces,
                 "launches": sum(paths[p][key] for p in main_paths),
                 "launches_by_path": {p: c[key] for p, c in paths.items()},
+                "launches_per_step": {p: c[key] / steps[p]
+                                      for p, c in paths.items()},
                 **result, **extra}
 
     print(json.dumps({"kernels": [
         entry("segment_sum_sorted", "segment_sum", "segment_sum.cu",
-              "virus_nerf_tpu/ops/segment_sum_pallas.py:231", ["bench"], b1,
+              "virus_nerf_tpu/ops/segment_sum_pallas.py:231",
+              ["bench", "scale1", "ngp"], b1, scale1_step=b1_scale1,
               **skew["ts"]),
         entry("fused_adam", "fused_adam", "fused_adam.cu",
               "virus_nerf_tpu/ops/fused_adam.py:37", list(paths),
               adam[xor_table_n], bf16_params=adam_bf16,
-              all_leaves=adam_leaves, all_leaves_bf16_table=adam_leaves_bf16,
-              launches_per_step={p: c["fused_adam"] / n for (p, c), n in
-                                 zip(paths.items(), (48, 32, 32))}),
+              all_leaves=adam_leaves, all_leaves_bf16_table=adam_leaves_bf16),
         entry("group_segment_sum_t_sorted", "segment_sum_rows",
               "segment_sum_rows.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:101", ["xor"], b3,
@@ -1010,6 +1257,11 @@ def main() -> None:
               "virus_nerf_tpu/ops/widen_pack_pallas.py:90", ["slabs"], b5,
               groups_ms={k: v["ms"] for k, v in b5_groups.items()},
               groups_device_ms={k: v["device_ms"] for k, v in b5_groups.items()}),
+        # the port's own kernel: the lax.scan of _candidate_lattice, which
+        # has no Pallas counterpart
+        entry("march_lattice", "march_lattice", "march_lattice.cu",
+              "virus_nerf_tpu/ops/ray_march.py:114", ["scale1", "ngp"],
+              lattice, pallas_counterpart=None),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,11 @@ from virus_nerf_tpu_torch.ops.fused_adam import (
     adam_update_plain_,
 )
 from virus_nerf_tpu_torch.ops import _build, hash_encoder, widen
+from virus_nerf_tpu_torch.ops.ray_march import (
+    march_lattice,
+    march_lattice_plain,
+    march_rays_train,
+)
 from virus_nerf_tpu_torch.ops import segment_sum as tss
 from virus_nerf_tpu_torch.ops.segment_sum import (
     factor_products,
@@ -511,3 +516,48 @@ def test_slabs_factors_hash_encode_on_card_matches_cpu(cuda_device, dtype):
     np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=0, atol=1e-6)
     tol = 1e-4 if dtype == torch.float32 else 2**-7
     np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=tol, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, K, esf, gs, scale, res", [
+    (4096, 1024, 1 / 256, 128, 1.0, 1024),  # the scale-1.0 bench march
+    (77, 33, 0.01, 64, 2.0, 1024),  # ragged: a partial warp, a partial tile
+    (300, 256, 0.003, 16, 0.75, 256),
+])
+def test_march_lattice_kernel_is_bit_exact(cuda_device, n, K, esf, gs, scale, res):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(n)
+    t1 = torch.rand(n, generator=gen, device=cuda_device) * 3.5 - 1.0
+    t1[:3] = -1.0  # miss rays
+    noise = torch.rand(n, generator=gen, device=cuda_device)
+    before = march_lattice.launches
+    ts, dts = march_lattice(t1, noise, esf, gs, scale, K, res)
+    want_ts, want_dts = march_lattice_plain(t1, noise, esf, gs, scale, K, res)
+    torch.cuda.synchronize()
+    assert march_lattice.launches == before + 1
+    assert torch.equal(ts, want_ts) and torch.equal(dts, want_dts)
+    # and the CPU's plain version gives the same bits
+    cpu_ts, cpu_dts = march_lattice_plain(t1.cpu(), noise.cpu(), esf, gs, scale,
+                                          K, res)
+    assert torch.equal(ts.cpu(), cpu_ts) and torch.equal(dts.cpu(), cpu_dts)
+
+
+@pytest.mark.cuda
+def test_exponential_march_on_card_matches_cpu(cuda_device):
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    n, gs = 512, 32
+    o = torch.rand((n, 3), generator=gen) * 1.8 - 0.9
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=1)
+    hits = torch.stack([torch.zeros(n), torch.full((n,), 2.0)], dim=1)
+    noise = torch.rand(n, generator=gen)
+    kw = dict(cascades=2, grid_size=gs, scale=1.0, exp_step_factor=1 / 256,
+              max_samples=64, n_candidates=1024)
+    for rows in (2, 1):  # the NGP grid, and the one-row VIRUS grid
+        occ = torch.rand((rows, gs**3), generator=gen) < 0.3
+        cpu = march_rays_train(o, d, hits, occ, noise, **kw)
+        card = march_rays_train(*(x.to(cuda_device) for x in (o, d, hits, occ, noise)),
+                                **kw)
+        torch.cuda.synchronize()
+        for k in ("valid", "n_samples", "ts", "deltas"):
+            assert torch.equal(getattr(card, k).cpu(), getattr(cpu, k)), k

@@ -4,13 +4,18 @@
     python tools/torch_profile_step.py --hash-levels 16 --hash-feats 2 \
         [--hash-forward slabs --hash-backward factors] [--dtype mixed] \
         [--route-ab | --quick]
+    python tools/torch_profile_step.py --config scale1|ngp [--quick]
 
 At the bench configuration (``chip_smoke.bench_config``, bench.py:311-348;
 with ``--hash-variant xor`` the reference's 16 x F=2 XOR hash of 2^19 rows
 in its place, with ``--hash-levels``/``--hash-feats`` another additive
 layout; ``--hash-forward``/``--hash-backward`` the additive hash's routes
-and ``--dtype`` the compute mode), from a seeded random init, in one
-process and in this order:
+and ``--dtype`` the compute mode; ``--config scale1`` the bench at
+``model.scale = 1.0``, ``chip_smoke.scale1_config``, exponential stepping
+over two cascades; ``--config ngp`` that on the NGP grid with the
+distortion loss and "closest" pixels, ``chip_smoke.ngp_config`` with
+real-time simulation off, so that every step draws from all images), from
+a seeded random init, in one process and in this order:
 
 1. 288 training steps (bench.py's warm-up: the grid settles);
 2. 200 timed steps, grid updates included, host clock after a
@@ -27,8 +32,8 @@ process and in this order:
    step calls (``hash_encoder.segment_sum_sorted``,
    ``hash_encoder.group_segment_sum_t_sorted``,
    ``hash_encoder.group_segment_sum_tsf_sorted``,
-   ``widen.widen_slabs_group`` and ``fused_adam.adam_update_leaves_``) for
-   their plain versions;
+   ``widen.widen_slabs_group``, ``fused_adam.adam_update_leaves_`` and
+   ``ray_march.march_lattice``) for their plain versions;
 8. with ``--route-ab`` (additive hash): in-train A/B of the routes
    ``corners``+``product`` against ``slabs``+``factors`` on the same
    state, 96 steps per turn in turns corners/slabs/slabs/corners twice
@@ -62,6 +67,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import chip_smoke  # noqa: E402
 import virus_nerf_tpu_torch.ops.fused_adam as fused_adam  # noqa: E402
 import virus_nerf_tpu_torch.ops.hash_encoder as hash_encoder  # noqa: E402
+import virus_nerf_tpu_torch.ops.ray_march as ray_march  # noqa: E402
 import virus_nerf_tpu_torch.ops.widen as widen  # noqa: E402
 from virus_nerf_tpu_torch.data.dataset import sample_batch  # noqa: E402
 from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset  # noqa: E402
@@ -94,6 +100,8 @@ def plain_kernels(on: bool):
         widen, "widen_slabs_group", widen.widen_slabs_group_plain))
     stack.enter_context(mock.patch.object(
         fused_adam, "adam_update_leaves_", fused_adam.adam_update_leaves_plain_))
+    stack.enter_context(mock.patch.object(
+        ray_march, "march_lattice", ray_march.march_lattice_plain))
     return stack
 
 
@@ -124,6 +132,7 @@ PORT_KERNELS = {
     "B3 segment_sum_rows": ("RowLoader",),
     "B4 segment_sum_factors": ("FactorLoader",),
     "B5 widen_slabs": ("widen_slabs_kernel",),
+    "L1 march_lattice": ("march_lattice_kernel",),
 }
 
 
@@ -262,6 +271,10 @@ def main():
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "mixed", "bfloat16"],
                     help="compute mode (model.dtype)")
+    ap.add_argument("--config", default="bench",
+                    choices=["bench", "scale1", "ngp"],
+                    help="scale1: the bench at scale 1.0; ngp: that on the "
+                         "NGP grid with distortion and closest pixels")
     ap.add_argument("--route-ab", action="store_true",
                     help="also A/B corners+product against slabs+factors")
     ap.add_argument("--quick", action="store_true",
@@ -282,7 +295,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    cfg = chip_smoke.bench_config()
+    cfg = {"bench": chip_smoke.bench_config,
+           "scale1": chip_smoke.scale1_config,
+           "ngp": chip_smoke.ngp_config}[args.config]()
+    cfg.training.real_time_simulation = False
     cfg.training.max_steps = WARMUP
     cfg.model.dtype = args.dtype
     cfg.model.hash_levels = args.hash_levels
@@ -290,7 +306,9 @@ def main():
     if args.hash_variant == "xor":
         cfg.model.hash_variant = "xor"
         cfg.model.hash_levels, cfg.model.hash_features_per_level = 16, 2
-    print(f"config: {cfg.model.hash_variant} {cfg.model.hash_levels} x "
+    print(f"config: {args.config}, scale {cfg.model.scale}, "
+          f"{cfg.model.grid_type} grid, {cfg.model.hash_variant} "
+          f"{cfg.model.hash_levels} x "
           f"{cfg.model.hash_features_per_level}, routes {args.hash_forward}/"
           f"{args.hash_backward}, {args.dtype}", flush=True)
     dataset, scene, _ = make_synthetic_dataset(

@@ -13,6 +13,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from virus_nerf_tpu_torch.data.uss_stats import USSStats
+from virus_nerf_tpu_torch.grids.ngp_grid import NGPGridState
 from virus_nerf_tpu_torch.grids.occupancy_grid import OccGridState
 
 
@@ -60,4 +62,23 @@ def grid_from_jax(grid, device="cuda") -> OccGridState:
         occ_3d_grid=_t(grid.occ_3d_grid, device),
         occ_bool=_t(grid.occ_bool, device, torch.bool),
         update_step=int(np.asarray(grid.update_step)),
+    )
+
+
+def ngp_grid_from_jax(grid, device="cuda") -> NGPGridState:
+    """``NGPGridState`` -> the port's."""
+    return NGPGridState(
+        density_grid=_t(grid.density_grid, device),
+        occ_bool=_t(grid.occ_bool, device, torch.bool),
+        bitfield=_t(grid.bitfield, device, torch.uint8),
+        threshold=_t(grid.threshold, device),
+    )
+
+
+def uss_stats_from_jax(stats, device="cuda") -> USSStats:
+    """``USSStats`` -> the port's (int64 pixel indices and counts)."""
+    return USSStats(
+        min_depth=_t(stats.min_depth, device),
+        min_pix=_t(stats.min_pix, device, torch.long),
+        counts=_t(stats.counts, device, torch.long),
     )

@@ -4,16 +4,25 @@ Counterpart of ``virus_nerf_tpu/data/dataset.py`` (reference:
 datasets/dataset_base.py:23-98, training/sampler.py:9-262).  Draws come
 from an explicit ``torch.Generator`` on the dataset's device.
 
-Strategies ported: images "all" | "same"; pixels "random" | "valid_uss" |
-"valid_tof", mixable as {strategy: share} with the remainder "random".
-"closest" (and the USS statistics it reads) is not ported yet.
+Strategies: images "all" | "same", optionally only among the images taken
+by ``elapse_time`` (real-time simulation); pixels "random" | "valid_uss" |
+"valid_tof" | "closest" (the pixel the USS statistics track, see
+``data/uss_stats.py``), mixable as {strategy: share} with the remainder
+"random", or "entire_img" (every pixel once, in order).
+
+The image filter draws uniformly over the images with ``times <=
+elapse_time``, or over all images while none qualifies
+(``ops.common.draw_masked``; a ``jax.random.categorical`` over a mask in
+the JAX package).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+
+from virus_nerf_tpu_torch.ops.common import draw_masked
 
 
 class DeviceDataset(NamedTuple):
@@ -72,19 +81,31 @@ def _randint(high: int, n: int, generator, device):
 
 
 def sample_img_idxs(dataset: DeviceDataset, generator, batch_size: int,
-                    img_strategy: str = "all"):
+                    img_strategy: str = "all", elapse_time=None):
+    """Image indices (reference: training/sampler.py:94-123); with
+    ``elapse_time`` (a float or a 0-dim tensor) only among the images with
+    ``times <= elapse_time`` (training/sampler.py:70-92)."""
     n, dev = dataset.n_images, dataset.device
-    if img_strategy == "all":
-        return _randint(n, batch_size, generator, dev)
-    if img_strategy == "same":
-        return _randint(n, 1, generator, dev).expand(batch_size)
-    raise ValueError(f"unknown or unported image strategy {img_strategy}")
+    if img_strategy not in ("all", "same"):
+        raise ValueError(f"unknown image strategy {img_strategy}")
+    draws = batch_size if img_strategy == "all" else 1
+    if elapse_time is None:
+        idx = _randint(n, draws, generator, dev)
+    else:
+        idx = draw_masked(dataset.times <= elapse_time, draws, generator)
+    return idx.expand(batch_size)
 
 
 def sample_pix_idxs(dataset: DeviceDataset, generator, batch_size: int,
-                    pix_strategy):
+                    pix_strategy, uss_stats_pix=None, img_idxs=None):
+    """Pixel indices (reference: training/sampler.py:125-262).  "closest"
+    reads ``uss_stats_pix`` (the tracked pixel of every image) at the
+    batch's images ``img_idxs``."""
     dev = dataset.device
+    if pix_strategy == "entire_img":
+        return torch.arange(dataset.n_pixels, device=dev)
     parts = []
+    offset = 0
     for name, b in strategy_slots(pix_strategy, batch_size):
         if b == 0:
             continue
@@ -96,8 +117,13 @@ def sample_pix_idxs(dataset: DeviceDataset, generator, batch_size: int,
                 else dataset.tof_mask_idx
             )
             parts.append(table[_randint(table.shape[0], b, generator, dev)])
+        elif name == "closest":
+            if uss_stats_pix is None or img_idxs is None:
+                raise ValueError("'closest' needs USS stats and img_idxs")
+            parts.append(uss_stats_pix[img_idxs[offset:offset + b]].long())
         else:
-            raise ValueError(f"unknown or unported pixel strategy {name}")
+            raise ValueError(f"unknown pixel strategy {name}")
+        offset += b
     return torch.cat(parts)
 
 
@@ -120,12 +146,17 @@ def gather_batch(dataset: DeviceDataset, img_idxs, pix_idxs) -> Batch:
 
 
 def sample_batch(dataset: DeviceDataset, generator, batch_size: int,
-                 sampling_strategy: Dict[str, Any]) -> Batch:
-    """Full batch draw (reference: datasets/dataset_base.py:23-76)."""
+                 sampling_strategy: Dict[str, Any], elapse_time=None,
+                 uss_stats_pix: Optional[torch.Tensor] = None) -> Batch:
+    """Full batch draw (reference: datasets/dataset_base.py:23-76); see
+    :func:`sample_img_idxs` for ``elapse_time`` and
+    :func:`sample_pix_idxs` for ``uss_stats_pix``."""
     img_idxs = sample_img_idxs(
-        dataset, generator, batch_size, sampling_strategy.get("imgs", "all")
+        dataset, generator, batch_size, sampling_strategy.get("imgs", "all"),
+        elapse_time,
     )
     pix_idxs = sample_pix_idxs(
-        dataset, generator, batch_size, sampling_strategy.get("pixs", "random")
+        dataset, generator, batch_size, sampling_strategy.get("pixs", "random"),
+        uss_stats_pix=uss_stats_pix, img_idxs=img_idxs,
     )
     return gather_batch(dataset, img_idxs, pix_idxs)

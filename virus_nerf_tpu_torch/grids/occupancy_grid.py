@@ -12,8 +12,8 @@ updated from
 
 as log-odds evidence ``log(Po/Pe)`` summed per cell (``index_add_``), then
 a Bayes update in log-odds, the warmup decay toward 0.5 and the boolean
-grid the march reads.  The Morton bitfield is not built: training never
-reads it.
+grid the march reads.  The state holds no Morton bitfield: training never
+reads it, and ``occ_grid_refresh_bitfield`` builds it for export.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from virus_nerf_tpu_torch.grids.base import bitfield_from_grid
 
 
 class OccGridHParams(NamedTuple):
@@ -209,6 +211,14 @@ def occ_grid_apply_delta(state: OccGridState, hp: OccGridHParams,
     if update_step <= hp.decay_warmup_steps:
         grid = grid * hp.grid_decay
     return OccGridState(grid, grid.reshape(1, -1) > hp.threshold, update_step)
+
+
+def occ_grid_refresh_bitfield(state: OccGridState, hp: OccGridHParams):
+    """The (gs^3 / 8,) uint8 Morton bitfield of the probability grid
+    (reference: modules/occupancy_grid.py:100-105), the JAX package's
+    ``occ_grid_refresh_bitfield(...).bitfield``."""
+    flat = state.occ_3d_grid.reshape(1, -1)
+    return bitfield_from_grid(flat, hp.threshold, hp.grid_size)
 
 
 def occ_grid_update(state: OccGridState, hp: OccGridHParams,

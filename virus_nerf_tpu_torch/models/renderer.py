@@ -32,6 +32,7 @@ def render_rays(
     n_candidates: int = 1024,
     march_resolution: int = 1024,
     sample_budget: Optional[int] = None,
+    need_ws: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Render a batch of rays.
 
@@ -41,9 +42,13 @@ def render_rays(
         noise: (N,) march jitter in [0, 1) (zeros for no jitter).
         sample_budget: run the model on at most this many compacted samples
             (None: on the dense (N, max_samples) layout).
+        need_ws: with ``sample_budget``, also scatter the stream's weights
+            back to the dense (N, max_samples) 'ws' (the distortion loss
+            reads them); the dense layout always returns 'ws'.
     Returns:
-        'opacity', 'depth', 'rgb', 'deltas', 'ts', 'valid' and the counters
-        'rm_samples', 'vr_samples', 'overflow'.  Background is white when
+        'opacity', 'depth', 'rgb', 'deltas', 'ts', 'valid', 'ws' (see
+        ``need_ws``) and the counters 'rm_samples', 'vr_samples',
+        'overflow'.  Background is white when
         ``exp_step_factor == 0``, else black (modules/rendering.py:219-226).
     """
     hits_t = ray_aabb_intersect(rays_o, rays_d, model.scale)
@@ -66,6 +71,7 @@ def render_rays(
             sigmas, rgbs, march.deltas, march.ts, march.valid, T_threshold
         )
         opacity, depth, rgb_fg = comp.opacity, comp.depth, comp.rgb
+        out["ws"] = comp.ws
         out["vr_samples"] = comp.vr_samples.sum()
         out["overflow"] = torch.zeros((), dtype=torch.int32, device=rays_o.device)
     else:
@@ -123,12 +129,17 @@ def render_rays(
             - torch.clamp(starts, max=sample_budget)
         )
         starts = torch.clamp(starts, max=sample_budget - 1)
-        opacity, depth, rgb_fg, vr_total, _ = composite_stream(
+        opacity, depth, rgb_fg, vr_total, w_stream = composite_stream(
             sig_c, rgb_c, dt_c, ts_c, sel_valid, ray_id, starts, cnt,
             T_threshold, max_count=S,
         )
         out["vr_samples"] = vr_total
         out["overflow"] = torch.clamp(total0 - sample_budget, min=0)
+        if need_ws:
+            # the stream's slots are distinct cells of the (N, S) layout
+            # (renderer.py:186-190)
+            out["ws"] = w_stream.new_zeros(valid_b.numel()).index_put(
+                (sel,), w_stream).reshape(valid_b.shape)
 
     rgb_bg = 1.0 if exp_step_factor == 0.0 else 0.0
     out["opacity"] = opacity

@@ -72,6 +72,8 @@ _SIGNATURES = {
     "vn_fused_adam": (_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P),
     "vn_fused_adam_max_leaves": (),
     "vn_fused_adam_chunk": (),
+    # t1, noise, ts, dts, n, K, esf, lo, hi, stream
+    "vn_march_lattice": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
 }
 
 

@@ -60,3 +60,17 @@ def mip_from_absmax(mx, cascades: int):
 def mip_from_dt(dt, grid_size: int, cascades: int):
     """Cascade index from step size (reference: modules/utils.py:87-92)."""
     return torch.clamp(_ceil_log2(dt * grid_size), 0, cascades - 1)
+
+
+def draw_masked(mask, n: int, generator):
+    """n indices drawn uniformly over the True entries of a (M,) bool mask,
+    or over all M entries while none is True — what
+    ``jax.random.categorical`` gives over logits of 0 (True) and -1e9
+    (False).  An inverse-CDF draw over the integer cumulative count: no
+    host sync, where ``torch.multinomial`` would need one to refuse an
+    all-zero mask."""
+    mask = mask | ~mask.any()
+    cdf = torch.cumsum(mask.long(), dim=0)
+    u = torch.rand((n,), generator=generator, device=mask.device)
+    j = torch.minimum((u * cdf[-1]).long(), cdf[-1] - 1)
+    return torch.searchsorted(cdf, j, right=True)

@@ -1,14 +1,17 @@
 """Occupancy-grid-guided ray marching into a static sample layout.
 
-Counterpart of ``march_rays_train`` (virus_nerf_tpu/ops/ray_march.py:306)
-for constant-dt configs (``exp_step_factor == 0``).  The semantics are
-ported, not the TPU probe tricks: the closed-form candidate lattice
-``t_k = t1 + (noise + k) * dt`` (:97-105), one exact occupancy probe per
+Counterpart of ``march_rays_train`` (virus_nerf_tpu/ops/ray_march.py:306).
+The semantics are ported, not the TPU probe tricks: the candidate lattice
+(``_candidate_lattice``, :88-116) — closed form ``t_k = t1 + (noise + k) *
+dt`` at constant dt (``exp_step_factor == 0``), the exponential-step scan
+otherwise, which runs as the CUDA kernel ``csrc/march_lattice.cu`` on the
+card (:func:`march_lattice`) — one exact cascade-aware occupancy probe per
 candidate (``occupancy_lookup``, :118-158), ``in_range``, and the
-rank-compact slot selection with stride subsampling of overflowing rays
-(``_rank_select`` / ``_select_from_valid``, :368-440).  The JAX package's
-payload, hierarchical and super-coarse probes are bit-exact stand-ins for
-this exact probe (:28-36), so none of them is ported.
+rank-compact slot selection with stride subsampling of overflowing rays and
+per-candidate step sizes (``_rank_select`` / ``_select_from_valid`` /
+``_exact``, :368-451).  The JAX package's payload, multi-cascade payload,
+hierarchical and super-coarse probes are bit-exact stand-ins for this exact
+probe (:28-36), so none of them is ported.
 
 The selection is computed, not sorted: a kept candidate of rank j lands in
 slot j (rays within budget) or slot ceil(j*S/c) (overflowing rays) — the
@@ -21,9 +24,13 @@ from typing import NamedTuple
 
 import torch
 
+import numpy as np
+
+from virus_nerf_tpu_torch.ops import _build
 from virus_nerf_tpu_torch.ops.common import (
     SQRT3,
     SQRT3_2,
+    calc_dt,
     mip_from_absmax,
     mip_from_dt,
 )
@@ -49,6 +56,14 @@ def occupancy_lookup(occ_grid, x, y, z, dt, cascades: int, grid_size: int,
         dt: (...) step sizes.
         active: optional (...) bool; where False the index is masked to 0
             (callers AND the result with their own mask).
+
+    The flat index is clamped to the grid's last cell, as XLA clamps the
+    JAX package's gather.  That matters only where the grid has fewer
+    rows than ``cascades``: the VIRUS grid is one cascade over
+    ``[-scale, scale]``, yet the renderer marches it with the model's
+    cascades (2 at scale 1.0), so a mip-1 probe indexes past its end and
+    reads the last cell — a reference behaviour the port keeps bit for bit
+    (ROADMAP, "Reference behaviours the port matches").
     """
     mx = torch.maximum(x.abs(), torch.maximum(y.abs(), z.abs()))
     mip = torch.maximum(
@@ -66,21 +81,109 @@ def occupancy_lookup(occ_grid, x, y, z, dt, cascades: int, grid_size: int,
     idx = mip.long() * grid_size**3 + lin
     if active is not None:
         idx = torch.where(active, idx, torch.zeros_like(idx))
-    return occ_grid.reshape(-1)[idx]
+    flat = occ_grid.reshape(-1)
+    return flat[idx.clamp_(max=flat.numel() - 1)]
 
 
-def _select_from_valid(valid, ts_cand, dt0: float, S: int):
+def _dt_bounds(grid_size: int, scale: float, resolution: int):
+    """``calc_dt``'s clamp bounds as float32 values."""
+    return (float(np.float32(SQRT3 / resolution)),
+            float(np.float32(SQRT3_2 * scale / grid_size)))
+
+
+def march_lattice_plain(t1, noise, exp_step_factor: float, grid_size: int,
+                        scale: float, n_candidates: int, resolution: int = 1024):
+    """Plain version of :func:`march_lattice`: the scan as a loop of K
+    steps over (N,) tensors."""
+    # t1 + noise * dt(t1) rounded once (a fused multiply-add), as XLA's CPU
+    # compiler gives the jitted JAX lattice; each later step is a multiply,
+    # a clamp and an add, each rounded
+    t = torch.addcmul(
+        t1, noise, calc_dt(t1, exp_step_factor, grid_size, scale, resolution)
+    )
+    ts = t1.new_empty((t1.shape[0], n_candidates))
+    dts = torch.empty_like(ts)
+    for k in range(n_candidates):
+        dt = calc_dt(t, exp_step_factor, grid_size, scale, resolution)
+        ts[:, k] = t
+        dts[:, k] = dt
+        t = t + dt
+    return ts, dts
+
+
+def _march_lattice_cuda(t1, noise, exp_step_factor: float, grid_size: int,
+                        scale: float, n_candidates: int, resolution: int):
+    if not (t1.is_contiguous() and noise.is_contiguous()):
+        raise ValueError("march_lattice: t1 and noise must be contiguous")
+    n = t1.shape[0]
+    ts = torch.empty((n, n_candidates), dtype=torch.float32, device=t1.device)
+    dts = torch.empty_like(ts)
+    lo, hi = _dt_bounds(grid_size, scale, resolution)
+    err = _build.library().vn_march_lattice(
+        t1.data_ptr(), noise.data_ptr(), ts.data_ptr(), dts.data_ptr(), n,
+        n_candidates, float(np.float32(exp_step_factor)), lo, hi,
+        torch.cuda.current_stream(t1.device).cuda_stream,
+    )
+    _build.check(err, "vn_march_lattice")
+    march_lattice.launches += 1
+    return ts, dts
+
+
+def march_lattice(t1, noise, exp_step_factor: float, grid_size: int,
+                  scale: float, n_candidates: int, resolution: int = 1024):
+    """The exponential-step candidate lattice: ``t_0 = t1 + noise *
+    dt(t1)``, ``t_{k+1} = t_k + dt(t_k)`` with ``dt`` of ``calc_dt``
+    (``_candidate_lattice``, virus_nerf_tpu/ops/ray_march.py:106-116).
+
+    A CUDA tensor launches ``csrc/march_lattice.cu`` (or raises); a CPU
+    tensor takes :func:`march_lattice_plain`.  ``.launches`` counts the
+    calls that launched the kernel (one launch each).
+
+    Args:
+        t1, noise: (N,) float32 cube entry distances and jitter in [0, 1).
+    Returns:
+        ts, dts: (N, n_candidates) float32 distances and step sizes.
+    """
+    if t1.dtype != torch.float32 or noise.dtype != torch.float32:
+        raise TypeError(
+            f"march_lattice: want float32 t1 and noise, got {t1.dtype} and "
+            f"{noise.dtype}"
+        )
+    if t1.dim() != 1 or tuple(noise.shape) != tuple(t1.shape):
+        raise ValueError(
+            f"march_lattice: want t1 and noise (N,), got {tuple(t1.shape)} "
+            f"and {tuple(noise.shape)}"
+        )
+    if noise.device != t1.device:
+        raise ValueError(
+            f"march_lattice: t1 on {t1.device}, noise on {noise.device}"
+        )
+    args = (t1, noise, exp_step_factor, grid_size, scale, n_candidates,
+            resolution)
+    if t1.is_cuda:
+        return _march_lattice_cuda(*args)
+    if t1.device.type == "cpu":
+        return march_lattice_plain(*args)
+    raise ValueError(f"march_lattice: unsupported device {t1.device}")
+
+
+march_lattice.launches = 0
+
+
+def _select_from_valid(valid, ts_cand, dts, S: int):
     """Rank-compact S slots per ray out of the (N, K) candidate lattice.
 
-    Rays with more valid candidates c than S keep the candidates of rank j
-    with ``ceil((j+1)S/c) > ceil(jS/c)`` and scale their delta by the
-    number of candidates each represents (ray_march.py:368-422).
+    ``dts`` is the (N, K) candidates' step sizes, or one float for a
+    constant step.  Rays with more valid candidates c than S keep the
+    candidates of rank j with ``ceil((j+1)S/c) > ceil(jS/c)`` and scale
+    their delta by the number of candidates each represents
+    (ray_march.py:368-422).
     """
     n_rays, K = valid.shape
     c = valid.sum(dim=1, dtype=torch.long)[:, None]  # (N, 1)
     v = valid.long()
     rank = torch.cumsum(v, dim=1) - v
-    dt = torch.full_like(ts_cand, dt0)
+    dt = (torch.full_like(ts_cand, dts) if isinstance(dts, float) else dts)
     if S >= K:
         kept, slot = valid, rank
     else:
@@ -131,39 +234,48 @@ def march_rays_train(
     Args:
         rays_o, rays_d: (N, 3) origins and unit directions.
         hits_t: (N, 2) cube entry/exit from ``ray_aabb_intersect``.
-        occ_grid: (cascades, grid_size^3) bool occupancy (cartesian order).
+        occ_grid: (rows, grid_size^3) bool occupancy (cartesian order),
+            one row a cascade; the one-row VIRUS grid too, whatever
+            ``cascades`` (see ``occupancy_lookup``).
         noise: (N,) per-ray jitter in [0, 1) of the first sample.
         max_samples: per-ray budget S of the layout.
         n_candidates: lattice length K.
         march_resolution: min step SQRT3/resolution (1024 = reference).
+        exp_step_factor: 0 for the constant step's closed form, else the
+            exponential-step lattice (:func:`march_lattice`).
     """
-    if exp_step_factor != 0.0:
-        raise NotImplementedError(
-            "march_rays_train: only constant-dt marching "
-            "(exp_step_factor == 0) is ported"
-        )
     n_rays = rays_o.shape[0]
     S = max_samples
     t1, t2 = hits_t[:, 0], hits_t[:, 1]
-    dt0 = float(torch.tensor(
-        min(max(0.0, SQRT3 / march_resolution), SQRT3_2 * scale / grid_size),
-        dtype=torch.float32,
-    ))
-    dt0_t = torch.tensor(dt0, dtype=torch.float32, device=rays_o.device)
-    k = torch.arange(n_candidates, dtype=torch.float32, device=rays_o.device)
-    # t1 + (noise + k) * dt and the positions o + t * d below are each
-    # rounded once, as fused multiply-adds: the rounding XLA's CPU compiler
-    # gives the JAX march under jit, so the probed cells agree bit for bit
-    ts_cand = torch.addcmul(t1[:, None], noise[:, None] + k[None, :], dt0_t)
+    if exp_step_factor == 0.0:
+        dt0 = float(np.float32(
+            min(max(0.0, SQRT3 / march_resolution), SQRT3_2 * scale / grid_size)
+        ))
+        dt0_t = torch.tensor(dt0, dtype=torch.float32, device=rays_o.device)
+        k = torch.arange(n_candidates, dtype=torch.float32, device=rays_o.device)
+        # t1 + (noise + k) * dt and the positions o + t * d below are each
+        # rounded once, as fused multiply-adds: the rounding XLA's CPU
+        # compiler gives the JAX march under jit, so the probed cells agree
+        # bit for bit
+        ts_cand = torch.addcmul(t1[:, None], noise[:, None] + k[None, :], dt0_t)
+        dts_cand, dts_sel = dt0_t.expand_as(ts_cand), dt0
+    else:
+        ts_cand, dts_cand = march_lattice(
+            t1.contiguous(), noise.contiguous(), exp_step_factor, grid_size,
+            scale, n_candidates, march_resolution,
+        )
+        dts_sel = dts_cand
     in_range = (ts_cand >= 0.0) & (ts_cand < t2[:, None]) & (t1[:, None] >= 0.0)
 
     cx, cy, cz = (torch.addcmul(rays_o[:, d:d + 1], ts_cand, rays_d[:, d:d + 1])
                   for d in range(3))
     occ = occupancy_lookup(
-        occ_grid, cx, cy, cz, dt0_t.expand_as(ts_cand), cascades, grid_size,
-        scale, active=in_range,
+        occ_grid, cx, cy, cz, dts_cand, cascades, grid_size, scale,
+        active=in_range,
     )
-    ts, deltas, valid, n_kept = _select_from_valid(occ & in_range, ts_cand, dt0, S)
+    ts, deltas, valid, n_kept = _select_from_valid(
+        occ & in_range, ts_cand, dts_sel, S
+    )
 
     xyzs = torch.addcmul(rays_o[:, None, :], ts[..., None], rays_d[:, None, :])
     dirs = rays_d[:, None, :].expand(n_rays, S, 3)

@@ -10,8 +10,10 @@ training/loss.py:7-198):
 
 The USS hinge penalizes only rendered depth closer than the cone-minimum
 measurement by more than a 3 cm (world) tolerance.  Masked means are
-sum(mask * err) / max(count, 1).  The distortion regularizer is not ported
-yet.
+sum(mask * err) / max(count, 1).  With ``distortion > 0`` the Mip-NeRF 360
+distortion regularizer ``mean_r sum_ij w_i w_j |t_i - t_j|`` over the
+renderer's dense weights 'ws' is added (loss.py:83-93); autograd carries
+its gradient.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ class LossWeights(NamedTuple):
     tof: float = 50.0
     uss: float = 50.0
     uss_depth_tol: float = 0.03 / 2.1  # 3 cm world -> cube units (trainer)
+    distortion: float = 0.0
 
 
 def _masked_mse(pred, target, mask):
@@ -61,6 +64,13 @@ def compute_loss(
             loss_dict["USS"] = term
         else:
             raise ValueError(f"unknown training sensor {sensor}")
+        total = total + term
+    if weights.distortion > 0.0 and "ws" in results:
+        w, t = results["ws"], results["ts"]
+        intra = (w[:, :, None] * w[:, None, :]
+                 * (t[:, :, None] - t[:, None, :]).abs()).sum(dim=(1, 2))
+        term = weights.distortion * intra.mean()
+        loss_dict["distortion"] = term
         total = total + term
     loss_dict["depth"] = total - color
     loss_dict["total"] = total

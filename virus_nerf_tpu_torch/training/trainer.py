@@ -11,27 +11,48 @@ the order of the JAX package's chunk body (trainer.py:484-510).
 Per-step metrics stay on the device and are fetched once per chunk of
 ``evaluation.eval_every_n_steps`` steps, not once per step.
 
-Ported: the occupancy ("occ") grid, the additive hash encoder (with its
-routes ``hash_forward``/``hash_backward``, arguments of the trainer) and the
-XOR one, the ``float32``, ``mixed`` and ``bfloat16`` compute modes
-(``model.dtype``; XOR in float32 only), constant-dt marching, the "all"/"same" image and
-"random"/"valid_uss"/"valid_tof" pixel strategies.  Not yet: checkpoints,
-debug_mode, intermediate evaluation, the NGP grid, real-time simulation,
-the distortion loss and data parallelism.
+Ported: the VIRUS ("occ") and the NGP ("ngp") grid, the additive hash
+encoder (with its routes ``hash_forward``/``hash_backward``, arguments of
+the trainer) and the XOR one, the ``float32``, ``mixed`` and ``bfloat16``
+compute modes (``model.dtype``; XOR in float32 only), constant-dt and
+exponential-step marching (every scale), the distortion loss, every image
+and pixel strategy ("closest" with its USS statistics in the state),
+real-time simulation (the images of a batch are those taken by the host
+clock's time since the loop started) and ``debug_mode``.  Not yet: the
+triplane encoder, checkpoints, intermediate evaluation and data
+parallelism.
+
+The NGP grid update runs every ``ngp_grid.update_interval`` steps, over
+every cell while ``step < ngp_grid.warmup_steps`` (trainer.py:536-545,
+704-745: the JAX trainer's step-wise warm-up and fused steady state run
+the same updates at the same steps).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from virus_nerf_tpu_torch.configs.config import Config
 from virus_nerf_tpu_torch.data.dataset import Batch, DeviceDataset, sample_batch
 from virus_nerf_tpu_torch.data.scene import Scene
+from virus_nerf_tpu_torch.data.uss_stats import (
+    USSStats,
+    uss_stats_init,
+    uss_stats_update,
+)
+from virus_nerf_tpu_torch.grids.ngp_grid import (
+    NGPGridState,
+    ngp_cell_draws,
+    ngp_grid_init,
+    ngp_grid_update_on,
+)
 from virus_nerf_tpu_torch.grids.occupancy_grid import (
     OccGridHParams,
     OccGridState,
@@ -40,28 +61,34 @@ from virus_nerf_tpu_torch.grids.occupancy_grid import (
 )
 from virus_nerf_tpu_torch.models.ngp import NGPModel
 from virus_nerf_tpu_torch.models.renderer import render_rays
+from virus_nerf_tpu_torch.ops.common import MAX_SAMPLES
 from virus_nerf_tpu_torch.ops.fused_adam import FusedAdam
 from virus_nerf_tpu_torch.training.loss import LossWeights, compute_loss
 
 logger = logging.getLogger("virus_nerf_tpu_torch")
 
 METRIC_KEYS = (
-    "loss", "loss_color", "loss_USS", "loss_ToF", "loss_rgbd", "loss_depth",
-    "psnr", "rm_samples", "vr_samples", "overflow",
+    "loss", "loss_color", "loss_USS", "loss_ToF", "loss_rgbd",
+    "loss_distortion", "loss_depth", "psnr", "rm_samples", "vr_samples",
+    "overflow",
 )
+
+# the NGP grid's density threshold (reference: training/trainer.py:110)
+NGP_DENSITY_THRESHOLD = 0.01 * MAX_SAMPLES / 3**0.5
 
 
 @dataclass
 class TrainState:
     """Everything a step changes: parameters (in ``model``), Adam moments
-    and step count (in ``optimizer``), the grid, the random stream and the
-    step."""
+    and step count (in ``optimizer``), the grid, the random stream, the
+    step and, for the "closest" pixel strategy, the USS statistics."""
 
     model: NGPModel
     optimizer: FusedAdam
-    grid: OccGridState
+    grid: Union[OccGridState, NGPGridState]
     generator: torch.Generator
     step: int = 0
+    uss_stats: Optional[USSStats] = None
 
 
 def _full_device(device) -> torch.device:
@@ -75,16 +102,10 @@ def _full_device(device) -> torch.device:
 
 def _check_supported(cfg: Config) -> None:
     unsupported = {
-        "model.grid_type": (cfg.model.grid_type, "occ"),
+        "model.grid_type": (cfg.model.grid_type, ("occ", "ngp")),
         "model.encoder_type": (cfg.model.encoder_type, "hash"),
         "model.hash_variant": (cfg.model.hash_variant, ("additive", "xor")),
         "model.dtype": (cfg.model.dtype, ("float32", "mixed", "bfloat16")),
-        "exp_step_factor": (cfg.exp_step_factor, 0.0),
-        "training.distortion_loss_w": (cfg.training.distortion_loss_w, 0.0),
-        "training.debug_mode": (cfg.training.debug_mode, False),
-        "training.real_time_simulation": (
-            cfg.training.real_time_simulation, False
-        ),
     }
     for name, (have, want) in unsupported.items():
         if have not in (want if isinstance(want, tuple) else (want,)):
@@ -101,7 +122,9 @@ class Trainer:
                  scene: Optional[Scene] = None, device=None,
                  hash_forward: str = "corners", hash_backward: str = "product"):
         """``hash_forward`` / ``hash_backward``: the additive hash's routes
-        (``hash_encode``); the compute mode is ``cfg.model.dtype``."""
+        (``hash_encode``); the compute mode is ``cfg.model.dtype``.  With
+        ``training.debug_mode`` the camera directions must be unit vectors
+        (AssertionError otherwise)."""
         _check_supported(cfg)
         self.cfg = cfg
         self.device = _full_device(
@@ -136,6 +159,7 @@ class Trainer:
         self.loss_weights = LossWeights(
             color=t.color_loss_w, rgbd=t.rgbd_loss_w, tof=t.tof_loss_w,
             uss=t.uss_loss_w, uss_depth_tol=float(0.03 * w2c),
+            distortion=t.distortion_loss_w,
         )
         og = cfg.occ_grid
         self.occ_hp = OccGridHParams(
@@ -150,8 +174,19 @@ class Trainer:
             decay_warmup_steps=og.decay_warmup_steps,
             update_interval=og.update_interval,
         )
-        self.grid_update_interval = og.update_interval
+        # reference: training/trainer_base.py:84-90
+        self.grid_update_interval = (
+            og.update_interval if m.grid_type == "occ"
+            else cfg.ngp_grid.update_interval
+        )
         self.sample_budget = self._sample_budget()
+        pixs = t.sampling_strategy.get("pixs", "random")
+        self.uses_closest = (pixs == "closest" if isinstance(pixs, str)
+                             else "closest" in pixs)
+        # the USS field of view as a dense pixel mask ("closest")
+        self.uss_mask = torch.zeros(
+            train_dataset.n_pixels, dtype=torch.bool, device=self.device
+        ).index_fill_(0, train_dataset.uss_mask_idx.long(), True)
         # occupancy update batches and the sensor cascade RGBD -> ToF/USS
         # (reference: modules/occupancy_grid.py:107-180)
         self.b_ray = max(1, int(og.batch_size * og.batch_ratio_ray_update))
@@ -170,6 +205,8 @@ class Trainer:
         else:
             raise ValueError("occupancy grid needs at least one depth sensor")
         self.logs: Dict[str, list] = {"time": [], "step": []}
+        if t.debug_mode:
+            self._debug_validate_dataset()
 
     def _sample_budget(self) -> Optional[int]:
         """The compacted-sample budget, or None for the dense layout.  As
@@ -185,22 +222,47 @@ class Trainer:
 
     # ------------------------------------------------------------------ init
     def init_state(self, seed: Optional[int] = None) -> TrainState:
-        """Model, optimizer, grid and random stream from one seed."""
+        """Model, optimizer, grid, random stream and (for "closest") the
+        USS statistics from one seed."""
         g = torch.Generator(device=self.device)
         g.manual_seed(self.cfg.seed if seed is None else int(seed))
         model = NGPModel(**self.model_kwargs, generator=g, device=self.device)
         optimizer = FusedAdam(model.parameters(), lr=self.cfg.training.lr,
                               eps=1e-15)
-        grid = occ_grid_init(self.occ_hp, generator=g, device=self.device)
+        if self.cfg.model.grid_type == "occ":
+            grid = occ_grid_init(self.occ_hp, generator=g, device=self.device)
+        else:
+            grid = ngp_grid_init(model.cascades, model.grid_size, self.device)
+        uss_stats = None
+        if self.uses_closest:
+            # every image starts on the field of view's middle pixel
+            # (trainer.py:158-168)
+            idx = self.train_dataset.uss_mask_idx
+            uss_stats = uss_stats_init(
+                self.train_dataset.n_images, int(idx[idx.shape[0] // 2]),
+                self.device,
+            )
         return TrainState(model=model, optimizer=optimizer, grid=grid,
-                          generator=g)
+                          generator=g, uss_stats=uss_stats)
+
+    def _elapse(self, elapse_time):
+        """The image filter's time: ``elapse_time`` under
+        ``real_time_simulation``, else None (every image)."""
+        return elapse_time if self.cfg.training.real_time_simulation else None
 
     # ------------------------------------------------------------ train step
-    def train_step(self, state: TrainState) -> Dict[str, torch.Tensor]:
-        """Draw a batch and the march jitter, then one step."""
+    def train_step(self, state: TrainState,
+                   elapse_time: Optional[float] = None) -> Dict[str, torch.Tensor]:
+        """Draw a batch and the march jitter, then one step.  Under
+        ``real_time_simulation`` the batch comes from the images with
+        ``times <= elapse_time`` (seconds since training started)."""
         t = self.cfg.training
-        batch = sample_batch(self.train_dataset, state.generator,
-                             t.batch_size, t.sampling_strategy)
+        batch = sample_batch(
+            self.train_dataset, state.generator, t.batch_size,
+            t.sampling_strategy, elapse_time=self._elapse(elapse_time),
+            uss_stats_pix=(state.uss_stats.min_pix if self.uses_closest
+                           else None),
+        )
         noise = torch.rand((t.batch_size,), generator=state.generator,
                            device=self.device)
         return self.train_step_on(state, batch, noise)
@@ -208,7 +270,8 @@ class Trainer:
     def train_step_on(self, state: TrainState, batch: Batch,
                       noise) -> Dict[str, torch.Tensor]:
         """One step on a given batch and march jitter; returns the step's
-        metrics as 0-dim device tensors."""
+        metrics as 0-dim device tensors.  With "closest" sampling it folds
+        the batch's rendered depths into the USS statistics."""
         t = self.cfg.training
         results = render_rays(
             state.model, state.grid.occ_bool, batch.rays_o, batch.rays_d,
@@ -217,6 +280,7 @@ class Trainer:
             n_candidates=t.march_candidates,
             march_resolution=t.march_resolution,
             sample_budget=self.sample_budget,
+            need_ws=self.loss_weights.distortion > 0.0,
         )
         loss, loss_dict = compute_loss(
             results, batch, self.loss_weights, tuple(t.sensors)
@@ -236,20 +300,48 @@ class Trainer:
                 "vr_samples": results["vr_samples"],
                 "overflow": results["overflow"],
             }
+            if self.uses_closest:
+                state.uss_stats = uss_stats_update(
+                    state.uss_stats, batch.img_idxs, batch.pix_idxs,
+                    results["depth"].detach(), self.uss_mask,
+                )
         return metrics
 
     # ------------------------------------------------------------ grid update
-    def grid_update(self, state: TrainState) -> None:
-        """Draw the two update batches and the position noise, then one
-        VIRUS grid update."""
+    def grid_update(self, state: TrainState,
+                    elapse_time: Optional[float] = None) -> None:
+        """Draw, then one grid update.  VIRUS grid: the two update batches
+        (under ``real_time_simulation`` from the images taken by
+        ``elapse_time``) and the position noise; NGP grid: the cells and
+        their jitter, every cell while ``step < ngp_grid.warmup_steps``."""
         ds, g = self.train_dataset, state.generator
+        if self.cfg.model.grid_type == "ngp":
+            draws = ngp_cell_draws(
+                state.grid, g,
+                warmup=state.step < self.cfg.ngp_grid.warmup_steps,
+                density_threshold=NGP_DENSITY_THRESHOLD,
+                grid_size=state.model.grid_size,
+            )
+            self.ngp_update_on(state, draws)
+            return
+        et = self._elapse(elapse_time)
         ray_b = sample_batch(ds, g, self.b_ray,
-                             {"imgs": "all", "pixs": self.ray_sel[0]})
+                             {"imgs": "all", "pixs": self.ray_sel[0]}, et)
         nerf_b = sample_batch(ds, g, self.b_nerf,
-                              {"imgs": "all", "pixs": self.nerf_sel[0]})
+                              {"imgs": "all", "pixs": self.nerf_sel[0]}, et)
         noise = torch.rand((self.b_nerf, self.occ_hp.M, 3), generator=g,
                            device=self.device) * 2.0 - 1.0
         self.grid_update_on(state, ray_b, nerf_b, noise)
+
+    def ngp_update_on(self, state: TrainState, draws) -> None:
+        """One NGP grid update at given draws (``ngp_cell_draws``)
+        (trainer.py:403-426)."""
+        with torch.no_grad():
+            state.grid = ngp_grid_update_on(
+                state.grid, state.model.density, draws,
+                density_threshold=NGP_DENSITY_THRESHOLD,
+                grid_size=state.model.grid_size, scale=state.model.scale,
+            )
 
     def grid_update_on(self, state: TrainState, ray_b: Batch, nerf_b: Batch,
                        nerf_noise) -> None:
@@ -268,7 +360,9 @@ class Trainer:
     def train(self, state: Optional[TrainState] = None) -> TrainState:
         """Run until ``training.max_steps`` or ``training.max_time``
         (checked once per chunk); grid update every interval, before the
-        step."""
+        step.  ``real_time_simulation`` reads the host clock before each
+        step and grid update; ``debug_mode`` checks the state after each
+        chunk (and may sync the host only there)."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
@@ -277,18 +371,61 @@ class Trainer:
         pending = []
         while state.step < cfg.training.max_steps:
             if state.step % self.grid_update_interval == 0:
-                self.grid_update(state)
-            pending.append((state.step, self.train_step(state)))
+                self.grid_update(state, time.time() - tic)
+            pending.append((state.step,
+                            self.train_step(state, time.time() - tic)))
             if len(pending) == chunk or state.step == cfg.training.max_steps:
-                self._log_chunk(pending, tic)
+                last = self._log_chunk(pending, tic)
                 pending = []
+                if cfg.training.debug_mode:
+                    self._debug_check_state(state, last, state.step)
                 if time.time() - tic > cfg.training.max_time:
                     logger.info("max_time reached at step %d", state.step)
                     break
         return state
 
-    def _log_chunk(self, pending, tic: float) -> None:
-        """One device -> host transfer for all metrics of the chunk."""
+    # ------------------------------------------------------------ debug mode
+    def _debug_check_state(self, state: TrainState, m: Dict[str, float],
+                           step: int) -> None:
+        """debug_mode's invariants (trainer.py:645-691): a finite loss and
+        hash table, VIRUS probabilities in [0, 1] and the boolean grid
+        their thresholding.  Raises FloatingPointError or AssertionError."""
+        if not math.isfinite(m["loss"]):
+            raise FloatingPointError(f"debug_mode: non-finite loss at {step}")
+        if not bool(torch.isfinite(state.model.pos_table).all()):
+            raise FloatingPointError(
+                f"debug_mode: non-finite hash table at {step}"
+            )
+        if isinstance(state.grid, OccGridState):
+            g = state.grid.occ_3d_grid
+            lo, hi = float(g.min()), float(g.max())
+            if not (0.0 <= lo and hi <= 1.0):
+                raise FloatingPointError(
+                    f"debug_mode: occupancy probs out of [0,1] at {step}: "
+                    f"[{lo}, {hi}]"
+                )
+            mismatch = int((state.grid.occ_bool.reshape(-1)
+                            != (g.reshape(-1) > self.occ_hp.threshold)).sum())
+            if mismatch:
+                raise AssertionError(
+                    f"debug_mode: occ_bool/prob mismatch at {step}: "
+                    f"{mismatch} cells"
+                )
+
+    def _debug_validate_dataset(self) -> None:
+        """The camera directions are unit vectors (trainer.py:693-702;
+        reference ray-norm check, datasets/dataset_base.py:236-241)."""
+        norms = torch.linalg.norm(self.train_dataset.directions,
+                                  dim=-1).cpu().numpy()
+        if not np.allclose(norms, 1.0, atol=1e-4):
+            raise AssertionError(
+                "debug_mode: camera direction table not unit-norm "
+                f"(range [{norms.min()}, {norms.max()}])"
+            )
+
+    def _log_chunk(self, pending, tic: float) -> Dict[str, float]:
+        """One device -> host transfer for all metrics of the chunk; returns
+        the last step's metrics."""
         keys = [k for k in METRIC_KEYS if k in pending[0][1]]
         vals = torch.stack([
             torch.stack([m[k].float() for k in keys]) for _, m in pending
@@ -305,3 +442,4 @@ class Trainer:
             pending[-1][0], last["loss"], last["psnr"],
             int(last["rm_samples"]), int(last["vr_samples"]),
         )
+        return {k: float(v) for k, v in last.items()}
