@@ -70,7 +70,25 @@ Phases, each printed as it finishes; any failure exits non-zero:
     real-time simulation, 32 steps; B1, B2 and the lattice launched, B2 and
     the lattice once a step;
 14. one small-config step on the card against the CPU at scale 1.0, with
-    the NGP grid (its warm-up update too) and with the distortion loss.
+    the NGP grid (its warm-up update too) and with the distortion loss;
+15. the ETHZ run: the port's fixture writer at its defaults (a recorded
+    room's layout: 300 images a camera at 320x240, two camera stacks,
+    800,000 map points) into a temporary directory, its 600 PNGs decoded
+    and its map read, then ``python -m virus_nerf_tpu_torch.run``'s
+    ``main`` on it with the default config at full width (the additive
+    16 x F=2 hash of 2^19 rows a level, 64-wide MLPs, the 128^3 VIRUS grid,
+    4096 rays, constant-dt march with the automatic budget 4096*32, the
+    default routes), cut to 48 steps (two chunks of 24, so two
+    intermediate evaluations) with the clock's limit lifted: finite,
+    falling loss; B1 and B2 launched, B2 once a step; every file written
+    (logs.csv 48 rows, metrics.csv with the USS, ToF and NeRF rows and a
+    finite NeRF zone-3 NND, the renders); the checkpoint reloaded into a
+    fresh trainer renders a test image bit-identical to the trained one;
+    B1 against its plain version at the keys of the run's last step.
+    Printed: the fixture's write time, the decode and read times, each
+    split's load time, ms/step and rays/s over steps 16-48 (host clock
+    after a sync, the intermediate evaluation at step 24 taken out), the
+    intermediate and final evaluation seconds and the peak memory.
 
 The line before the last is the card's name and power limit (nvidia-smi);
 before it, one JSON line with the kernels' results.  The last line is
@@ -80,10 +98,14 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -999,6 +1021,198 @@ def evaluate_scale1(trainer, state, test_ds, scene, img_wh, card):
         fail(f"scale-1.0 evaluation: non-finite metrics {m}")
 
 
+def ethz_run(dev, wrappers, card, tmp):
+    """The ETHZ run (phase 15): fixture, decode and read, ``run.main`` with
+    the kernel counts set to 0 just before and read just after, the checks
+    of the module doc.  Returns (launches, B1 at the run's last step)."""
+    from virus_nerf_tpu_torch import run
+    from virus_nerf_tpu_torch.data import ethz
+    from virus_nerf_tpu_torch.data.ethz_fixture import generate_ethz_fixture
+    from virus_nerf_tpu_torch.data.pcl import load_pcd
+    from virus_nerf_tpu_torch.data.png import read_pngs
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+    from virus_nerf_tpu_torch.models.ngp import NGPModel
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    tic = time.perf_counter()
+    root = generate_ethz_fixture(os.path.join(tmp, "ethz"))
+    fixture_s = time.perf_counter() - tic
+    room = os.path.join(root, "commonroom")
+    paths = [os.path.join(room, "measurements", f"{cam}_color_image_raw",
+                          f"img{i}.png") for cam in ("CAM1", "CAM3")
+             for i in range(300)]
+    tic = time.perf_counter()
+    imgs = read_pngs(paths)
+    png_s = time.perf_counter() - tic
+    tic = time.perf_counter()
+    cloud = load_pcd(os.path.join(room, "maps", "map_balm.pcd"))
+    pcd_s = time.perf_counter() - tic
+    log(f"ETHZ fixture: 2 x 300 images at 320x240 and {cloud.shape[0]:,} map "
+        f"points written in {fixture_s:.2f} s; PNG decode of the 600 images "
+        f"{png_s:.2f} s ({1e3 * png_s / len(imgs):.2f} ms an image, numpy + "
+        f"zlib); PCD read of the map {pcd_s:.3f} s")
+    if len(imgs) != 600 or imgs[0].shape != (240, 320, 3) or cloud.shape != (
+            800_000, 3):
+        fail(f"ETHZ fixture: {len(imgs)} images of {imgs[0].shape}, map "
+             f"{cloud.shape}")
+
+    # instruments: the training positions of each step, the host clock
+    # after a sync at steps 16 and 48, the evaluations' and loads' seconds
+    seen, clock, evals, loads, run_state, parts = {}, {}, [], [], {}, {}
+    train_step, inter_eval = Trainer.train_step, Trainer._intermediate_eval
+    train, evaluate, load = Trainer.train, Evaluator.evaluate, ethz.load_ethz_dataset
+    ev_color, ev_depth = Evaluator.evaluate_color, Evaluator.evaluate_depth
+
+    def timed(fn, record):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record(args, kwargs, time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def step_clocked(self, state, elapse_time=None):
+        out = train_step(self, state, elapse_time)
+        if state.step in (16, 48):
+            torch.cuda.synchronize()
+            clock[state.step] = time.perf_counter()
+        return out
+
+    def final_depth(args, kwargs, seconds):
+        sensors = kwargs.get("sensors", args[4] if len(args) > 4 else None)
+        if tuple(sensors or ()) != ("NeRF",):
+            parts["depth"] = seconds
+
+    def keep_state(self, state=None):
+        run_state["trainer"], run_state["state"] = self, train(self, state)
+        return run_state["state"]
+
+    def keep_train_positions(mod, inputs):
+        if isinstance(mod, NGPModel) and torch.is_grad_enabled():
+            seen["xyz"] = inputs[0].detach()
+
+    save = os.path.join(tmp, "run")
+    argv = ["--save-dir", save, "--override", "dataset.name=ETHZ",
+            "--override", f"ethz.dataset_dir={root}",
+            "--override", "training.max_steps=48",
+            "--override", "training.max_time=1e9"]
+    log("ETHZ run: python -m virus_nerf_tpu_torch.run " + " ".join(argv)
+        + "; cuts: training.max_steps 500 -> 48 (two chunks of 24: the "
+        "chunk is eval_every_n_steps 25 rounded down to whole grid-update "
+        "intervals of 8, as in the JAX loop), training.max_time 45 -> 1e9 "
+        "(the step count, not the clock, ends training)")
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        keep_train_positions)
+    replacements = [
+        (Trainer, "train_step", step_clocked),
+        (Trainer, "train", keep_state),
+        (Trainer, "_intermediate_eval", timed(
+            inter_eval, lambda a, k, s: evals.append((a[1].step, s)))),
+        (Evaluator, "evaluate", timed(
+            evaluate, lambda a, k, s: evals.append(("final", s)))),
+        # the final evaluation's parts: colour renders, and the depth scans
+        # of every sensor (the intermediate ones score the NeRF alone)
+        (Evaluator, "evaluate_color", timed(
+            ev_color, lambda a, k, s: parts.update(color=s))),
+        (Evaluator, "evaluate_depth", timed(ev_depth, final_depth)),
+        (ethz, "load_ethz_dataset", timed(
+            load, lambda a, k, s: loads.append((k.get("split", a[1:2]), s)))),
+    ]
+    with contextlib.ExitStack() as patches:
+        for owner, name, replacement in replacements:
+            patches.enter_context(mock.patch.object(owner, name, replacement))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        tic = time.perf_counter()
+        metrics = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        launches = read_counts(wrappers)
+    hook.remove()
+    trainer, state = run_state["trainer"], run_state["state"]
+    cfg = trainer.cfg
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # training
+    check_training("ETHZ run", trainer, state, 48, 16)
+    between = sum(s for step, s in evals if step != "final" and 16 < step < 48)
+    step_s = (clock[48] - clock[16] - between) / 32
+    inter = [s for step, s in evals if step != "final"]
+    final = [s for step, s in evals if step == "final"]
+    log(f"ETHZ run: {wall:.2f} s in all; loads {[(sp, round(s, 2)) for sp, s in loads]} "
+        f"s; steady state steps 16-48: {1e3 * step_s:.2f} ms/step, "
+        f"{cfg.training.batch_size / step_s:.0f} rays/s (host clock after a "
+        f"sync, the evaluation at step 24 taken out); intermediate "
+        f"evaluations {[round(s, 2) for s in inter]} s, final evaluation "
+        f"{final[0]:.2f} s (colour renders of {cfg.evaluation.num_color_pts} "
+        f"images {parts['color']:.2f} s, depth scans and NND of "
+        f"{cfg.evaluation.num_depth_pts} of {trainer.test_dataset.n_images} "
+        f"images {parts['depth']:.2f} s); "
+        f"peak device memory {peak:.2f} GiB; on {card}")
+    log(f"ETHZ run: kernel launches {launches}; table "
+        f"{tuple(state.model.pos_table.shape)}; NeRF nn_mean z3 "
+        f"{metrics['NeRF']['nn_mean']['zone3']:.4f} m, ToF "
+        f"{metrics['ToF']['nn_mean']['zone3']:.4f} m, USS "
+        f"{metrics['USS']['nn_mean']['zone3']:.4f} m; psnr "
+        f"{metrics['NeRF']['psnr']:.3f} ssim {metrics['NeRF']['ssim']:.4f}")
+    check_launched("ETHZ run", launches, ("segment_sum", "fused_adam"))
+    check_adam_per_step("ETHZ run", launches, 48)
+    idle = [k for k in ("segment_sum_rows", "segment_sum_factors",
+                        "widen_slabs", "march_lattice") if launches[k]]
+    if idle or state.model.pos_table.shape != (5_710_032, 2):
+        fail(f"ETHZ run: the default path launched {idle} or has table "
+             f"{tuple(state.model.pos_table.shape)}")
+    if trainer.train_dataset.directions.shape[0] != 2 or set(
+            trainer.train_dataset.sensor_ids.tolist()) != {1, 3}:
+        fail("ETHZ run: not two cameras and stacks 1, 3")
+
+    # the files
+    with open(os.path.join(save, "logs.csv")) as f:
+        logs = [line.rstrip("\n").split(",") for line in f]
+    with open(os.path.join(save, "metrics.csv")) as f:
+        rows = [line.split(",")[0] for line in f][1:]
+    renders = sorted(os.listdir(os.path.join(save, "renders")))
+    missing = [n for n in ("model.npz", "model.npz.json", "hparams.json")
+               if not os.path.exists(os.path.join(save, n))]
+    mnn_rows = [r[1] for r in logs[1:] if r[-1] != "nan"]
+    log(f"ETHZ run: files {sorted(os.listdir(save))}; logs.csv {logs[0]} "
+        f"{len(logs) - 1} rows, mnn at steps {mnn_rows}; metrics.csv rows "
+        f"{rows}; {len(renders)} renders")
+    if (missing or len(logs) != 49 or mnn_rows != ["23", "47"]
+            or rows != ["USS", "ToF", "NeRF"] or len(renders) != 3 * 8
+            or not np.isfinite(metrics["NeRF"]["nn_mean"]["zone3"])):
+        fail(f"ETHZ run: files missing {missing} or wrong logs/metrics/renders")
+
+    # the checkpoint in a fresh trainer: the same state, the same render
+    fresh = Trainer(cfg, trainer.train_dataset, scene=trainer.scene, device=dev)
+    loaded = fresh.load_checkpoint(os.path.join(save, "model.npz"))
+    a, b = trainer.state_arrays(state), fresh.state_arrays(loaded)
+    same_state = a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+    ev = Evaluator(cfg, trainer.test_dataset, trainer.scene,
+                   img_wh=trainer.img_wh, device=dev)
+    pose = ev.ds["poses"][0]
+    rays_d = ev.ds["directions"][int(ev.ds["cam_idx"][0])] @ pose[:3, :3].T
+    rays_o = np.broadcast_to(pose[:3, 3], rays_d.shape)
+    r1 = ev.render_batched(state.model, state.grid.occ_bool, rays_o, rays_d)
+    r2 = ev.render_batched(loaded.model, loaded.grid.occ_bool, rays_o, rays_d)
+    same_render = all(np.array_equal(r1[k], r2[k]) for k in r1)
+    log(f"ETHZ run: checkpoint reloaded into a fresh trainer: {len(a)} arrays "
+        f"equal {same_state}; test image 0 ({rays_d.shape[0]} rays) rendered "
+        f"bit-identical {same_render}")
+    if not (same_state and same_render):
+        fail("ETHZ run: the reloaded checkpoint differs from the trained state")
+
+    # B1 at the keys of the run's last step: a real room's keys
+    cases = slice_segment_cases(state.model, seen["xyz"], dev)
+    if [c[0] for c in cases] != ["slice_merged_dense", "slice_hashed_group"]:
+        fail(f"unexpected hash backward streams {[c[0] for c in cases]}")
+    b1 = sum_results([check_segment_sum(*case, layout="ts") for case in cases])
+    return launches, b1
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -1217,13 +1431,19 @@ def main() -> None:
     reference_step(dev, "additive", scale=1.0, grid_type="ngp")
     reference_step(dev, "additive", distortion=1e-2)
 
+    # ---- 15. the ETHZ run through run.py
+    with tempfile.TemporaryDirectory() as tmp:
+        ethz_launches, b1_ethz = ethz_run(dev, wrappers, card, tmp)
+    torch.cuda.empty_cache()
+
     # ms: the kernel's calls of one step at the keys (B1, B3, B4) or table
     # (B5) of its path; fused Adam on the 16 x 2 hash table; the lattice of
     # one march of the scale-1.0 path
     paths = {"bench": bench_launches, "xor": xor_launches,
              "slabs": slabs_launches, "scale1": scale1_launches,
-             "ngp": ngp_launches}
-    steps = {"bench": 48, "xor": 32, "slabs": 32, "scale1": 48, "ngp": 32}
+             "ngp": ngp_launches, "ethz": ethz_launches}
+    steps = {"bench": 48, "xor": 32, "slabs": 32, "scale1": 48, "ngp": 32,
+             "ethz": 48}
 
     def entry(name, key, source, replaces, main_paths, result, **extra):
         return {"name": name, "route": "cuda",
@@ -1238,7 +1458,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("segment_sum_sorted", "segment_sum", "segment_sum.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:231",
-              ["bench", "scale1", "ngp"], b1, scale1_step=b1_scale1,
+              ["bench", "scale1", "ngp", "ethz"], b1, scale1_step=b1_scale1,
+              ethz_step=b1_ethz,
               **skew["ts"]),
         entry("fused_adam", "fused_adam", "fused_adam.cu",
               "virus_nerf_tpu/ops/fused_adam.py:37", list(paths),

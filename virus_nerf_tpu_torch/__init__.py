@@ -10,8 +10,8 @@ sensor models, the evaluation geometry and metrics) are copies.
 Plain tensor code is PyTorch.  The TPU's Pallas kernels on the training
 path are hand-written CUDA C++ for Hopper (``csrc/``), built at first use
 (``ops/_build.py``).  Entry points (datasets, converters, the evaluator,
-``quality_run``) put their tensors on ``cuda`` unless the caller passes
-another device; without a card they raise.  A kernel wrapper given a CPU
+``run``, ``run_ablation``, ``quality_run``) put their tensors on ``cuda``
+unless the caller passes another device; without a card they raise.  A kernel wrapper given a CPU
 tensor runs the plain PyTorch version of the same function; given a CUDA
 tensor it launches the kernel or raises.
 """

@@ -3,11 +3,14 @@
 The functions take the JAX pytrees with their leaves already as numpy
 arrays (``jax.tree.map(np.asarray, tree)``) and read them by field name, so
 this module imports no jax.  Tests use them to make both implementations
-compute on the same numbers.
+compute on the same numbers.  ``state_from_jax_checkpoint`` reads the JAX
+trainer's ``model.npz`` from disk.
 """
 
 from __future__ import annotations
 
+import re
+from types import SimpleNamespace
 from typing import Dict, Tuple
 
 import numpy as np
@@ -82,3 +85,52 @@ def uss_stats_from_jax(stats, device="cuda") -> USSStats:
         min_pix=_t(stats.min_pix, device, torch.long),
         counts=_t(stats.counts, device, torch.long),
     )
+
+
+def _jax_fields(leaves: Dict[str, np.ndarray], prefix: str) -> SimpleNamespace:
+    """The fields under ``prefix`` of a JAX checkpoint's leaves (keyed by
+    tree path: ``.params.pos_table``, ``.params.xyz_w[0]``), tuples of
+    arrays as lists."""
+    fields: Dict[str, object] = {}
+    for key, a in leaves.items():
+        if not key.startswith(prefix + "."):
+            continue
+        m = re.fullmatch(r"(\w+)(?:\[(\d+)\])?", key[len(prefix) + 1:])
+        if m is None:
+            continue
+        if m[2] is None:
+            fields[m[1]] = a
+        else:
+            fields.setdefault(m[1], {})[int(m[2])] = a
+    return SimpleNamespace(**{
+        k: [v[i] for i in sorted(v)] if isinstance(v, dict) else v
+        for k, v in fields.items()
+    })
+
+
+def state_from_jax_checkpoint(path: str, trainer):
+    """A JAX trainer's checkpoint (``model.npz``: leaves keyed
+    ``leaf{i}:{tree path}``, virus_nerf_tpu/training/trainer.py:818-824)
+    as a ``TrainState`` of the port's ``trainer``, which must be built from
+    the same config: parameters, Adam step and moments, grid, step and USS
+    statistics.  The random stream stays the port's, seeded from the
+    config (a JAX key has no torch counterpart)."""
+    with np.load(path, allow_pickle=False) as f:
+        leaves = {k.split(":", 1)[1]: f[k] for k in f.files
+                  if k.startswith("leaf")}
+    state = trainer.init_state()
+    dev = trainer.device
+    state.model.load_state_dict(
+        params_from_jax(_jax_fields(leaves, ".params"), dev))
+    opt = SimpleNamespace(count=leaves[".opt_state.count"],
+                          mu=_jax_fields(leaves, ".opt_state.mu"),
+                          nu=_jax_fields(leaves, ".opt_state.nu"))
+    count, mu, nu = adam_state_from_jax(opt, dev)
+    state.optimizer.load_moments(state.model.named_parameters(), count, mu, nu)
+    grid = _jax_fields(leaves, ".grid")
+    state.grid = (ngp_grid_from_jax(grid, dev) if hasattr(grid, "density_grid")
+                  else grid_from_jax(grid, dev))
+    if ".uss_stats.min_pix" in leaves:
+        state.uss_stats = uss_stats_from_jax(_jax_fields(leaves, ".uss_stats"), dev)
+    state.step = int(leaves[".step"])
+    return state

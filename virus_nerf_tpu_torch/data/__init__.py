@@ -1,1 +1,27 @@
 """Datasets and batch sampling."""
+
+
+def make_dataset(cfg, split: str = "train", scene=None, device="cuda"):
+    """Dataset factory by config name, "synthetic" | "ETHZ" (counterpart of
+    ``virus_nerf_tpu/data/__init__.py:make_dataset``; reference:
+    training/trainer_base.py:42-65).  "RH2" is not ported yet (ROADMAP,
+    Queue A item 8).
+
+    Returns (DeviceDataset, Scene, info) on ``device``.
+    """
+    name = cfg.dataset.name
+    if name == "synthetic":
+        from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+
+        return make_synthetic_dataset(device=device)
+    if name == "ETHZ":
+        from virus_nerf_tpu_torch.data.ethz import load_ethz_dataset
+
+        return load_ethz_dataset(cfg, split=split, scene=scene, device=device)
+    if name == "RH2":
+        raise NotImplementedError(
+            "virus_nerf_tpu_torch: the RH2 loader is not ported yet "
+            "(ROADMAP, Queue A item 8: data/rh.py with its robotathome "
+            "reader)"
+        )
+    raise ValueError(f"unknown dataset {name}")

@@ -42,33 +42,42 @@ def _default_boxes() -> Tuple[np.ndarray, np.ndarray]:
     return np.stack([mins, maxs], axis=1), colors
 
 
-def _raycast(rays_o, rays_d, boxes, box_colors):
-    """Exact depth (N,) + color (N, 3) of rays from inside the room:
-    min(room-wall exit, nearest obstacle entry)."""
+def _raycast(rays_o, rays_d, boxes, box_colors, room_min=None, room_max=None):
+    """Exact depth (N,) + color (N, 3) of rays from inside the room
+    (default: the synthetic room): min(room-wall exit, nearest obstacle
+    entry).  The JAX package's arithmetic, element for element, laid out
+    axis-major (3, N) so that the reductions over the axes run on rows."""
+    room_min = _ROOM_MIN if room_min is None else np.asarray(room_min)
+    room_max = _ROOM_MAX if room_max is None else np.asarray(room_max)
     n = rays_o.shape[0]
     inv = 1.0 / np.where(np.abs(rays_d) < 1e-12, 1e-12, rays_d)
+    inv, o = np.ascontiguousarray(inv.T), np.ascontiguousarray(np.asarray(rays_o).T)
     t_exit_per_axis = np.maximum(
-        (_ROOM_MIN - rays_o) * inv, (_ROOM_MAX - rays_o) * inv
-    )
-    axis = np.argmin(t_exit_per_axis, axis=1)
-    depth = t_exit_per_axis[np.arange(n), axis]
+        (room_min[:, None] - o) * inv, (room_max[:, None] - o) * inv
+    )  # (3, N)
+    axis = np.argmin(t_exit_per_axis, axis=0)
+    depth = t_exit_per_axis[axis, np.arange(n)]
     sign_pos = rays_d[np.arange(n), axis] > 0
-    rgb = _WALL_COLORS[axis * 2 + (~sign_pos).astype(int)]
+    color = axis * 2 + (~sign_pos).astype(int)  # row of the palette
     for b in range(boxes.shape[0]):
-        bt_lo = (boxes[b, 0] - rays_o) * inv
-        bt_hi = (boxes[b, 1] - rays_o) * inv
-        t1 = np.minimum(bt_lo, bt_hi).max(axis=1)
-        t2 = np.maximum(bt_lo, bt_hi).min(axis=1)
+        bt_lo = (boxes[b, 0][:, None] - o) * inv
+        bt_hi = (boxes[b, 1][:, None] - o) * inv
+        t1 = np.maximum.reduce(np.minimum(bt_lo, bt_hi))
+        t2 = np.minimum.reduce(np.maximum(bt_lo, bt_hi))
         hit = (t2 > t1) & (t1 > 1e-6) & (t1 < depth)
         depth = np.where(hit, t1, depth)
-        rgb = np.where(hit[:, None], box_colors[b], rgb)
-    return depth, rgb
+        color = np.where(hit, len(_WALL_COLORS) + b, color)
+    return depth, np.concatenate([_WALL_COLORS, box_colors])[color]
 
 
-def _sample_surfaces(rng, boxes: np.ndarray, n_points: int) -> np.ndarray:
-    """Points uniform by area on the room walls + box faces (the GT map)."""
+def _sample_surfaces(rng, boxes: np.ndarray, n_points: int,
+                     room_min=None, room_max=None) -> np.ndarray:
+    """Points uniform by area on the room walls + box faces (the GT map;
+    default room: the synthetic one)."""
+    room_min = _ROOM_MIN if room_min is None else np.asarray(room_min)
+    room_max = _ROOM_MAX if room_max is None else np.asarray(room_max)
     aabbs = np.concatenate(
-        [np.stack([_ROOM_MIN, _ROOM_MAX])[None], boxes], axis=0
+        [np.stack([room_min, room_max])[None], boxes], axis=0
     )
     faces = []
     for b in range(aabbs.shape[0]):

@@ -14,14 +14,18 @@ The NeRF renders run on the card in fixed-size chunks (the last one padded)
 with zero march noise under ``torch.no_grad()``; everything after the
 render is the JAX package's numpy code, on the host.  Where the JAX methods
 take the parameters (``params``), these take the model that holds them.
+``evaluate(save_dir=...)`` writes ``metrics.csv`` and the colour renders
+(``renders/{rgb,rgb_gt,depth}_###.png``, with the port's PNG writer and
+turbo table).
 
-Not ported yet: render and plot export (``save_dir``, ``plot``),
-``metrics.csv``, ``density_slice``, ``pack_lidar_scans`` and the NeRF
-point-cloud export.
+Not ported yet: the plots (``plot=True`` raises; ROADMAP, Queue A item 7),
+``density_slice``, ``pack_lidar_scans`` and the NeRF point-cloud export.
 """
 
 from __future__ import annotations
 
+import csv
+import os
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -29,11 +33,13 @@ import torch
 
 from virus_nerf_tpu_torch.configs.config import Config
 from virus_nerf_tpu_torch.data.dataset import DeviceDataset
+from virus_nerf_tpu_torch.data.png import write_png
 from virus_nerf_tpu_torch.data.scene import Scene
 from virus_nerf_tpu_torch.evaluation import metrics as M
 from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays, limit_fov
 from virus_nerf_tpu_torch.models.ngp import NGPModel
 from virus_nerf_tpu_torch.models.renderer import render_rays
+from virus_nerf_tpu_torch.utils.helpers import turbo
 
 
 def _sync_idxs(times: np.ndarray, sids: np.ndarray, img_idxs,
@@ -130,15 +136,16 @@ class Evaluator:
         return {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
 
     # ----------------------------------------------------------- color eval
-    def evaluate_color(self, model: NGPModel, occ_bool,
-                       img_idxs: np.ndarray) -> Dict[str, float]:
-        """Full-image renders -> PSNR/SSIM (reference:
-        training/trainer.py:304-372)."""
+    def evaluate_color(self, model: NGPModel, occ_bool, img_idxs: np.ndarray,
+                       save_dir: Optional[str] = None) -> Dict[str, float]:
+        """Full-image renders -> PSNR/SSIM; with ``save_dir`` also the
+        per-image ``rgb_###.png`` / ``rgb_gt_###.png`` / ``depth_###.png``
+        (reference: training/trainer.py:304-372, export :358-370)."""
         if self.img_wh is None:
             raise ValueError("Evaluator needs img_wh for color evaluation")
         W, H = self.img_wh
         ds = self.ds
-        rgbs, gts = [], []
+        rgbs, gts, depths = [], [], []
         for i in np.asarray(img_idxs, int):
             dirs_cam = ds["directions"][int(ds["cam_idx"][i])]  # (H*W, 3)
             pose = ds["poses"][i]  # (3, 4)
@@ -147,8 +154,28 @@ class Evaluator:
             out = self.render_batched(model, occ_bool, rays_o, rays_d)
             rgbs.append(out["rgb"].reshape(H, W, 3))
             gts.append(ds["rgbs"][i].reshape(H, W, 3))
-        rgbs, gts = np.stack(rgbs), np.stack(gts)
+            depths.append(out["depth"].reshape(H, W))
+        rgbs, gts, depths = np.stack(rgbs), np.stack(gts), np.stack(depths)
+        if save_dir:
+            self.save_render_images(save_dir, np.asarray(img_idxs, int),
+                                    rgbs, gts, depths)
         return {"psnr": M.psnr(rgbs, gts), "ssim": M.ssim(rgbs, gts)}
+
+    @staticmethod
+    def save_render_images(save_dir, img_idxs, rgbs, gts, depths):
+        """Rendered and GT colour and the turbo-coloured depth (scaled by
+        the largest depth) of each image as PNGs, the pixels of the JAX
+        package's ``save_render_images`` (evaluator.py:160-183)."""
+        os.makedirs(save_dir, exist_ok=True)
+        d_max = float(np.nanmax(depths)) if np.isfinite(depths).any() else 1.0
+        d_max = d_max if d_max > 0 else 1.0
+        for j, i in enumerate(img_idxs):
+            for name, img in (("rgb", rgbs[j]), ("rgb_gt", gts[j])):
+                write_png(os.path.join(save_dir, f"{name}_{i:03d}.png"),
+                          (np.clip(img, 0, 1) * 255).astype(np.uint8))
+            dn = np.clip(depths[j] / d_max, 0.0, 1.0)
+            write_png(os.path.join(save_dir, f"depth_{i:03d}.png"),
+                      (turbo(dn) * 255).astype(np.uint8))
 
     # -------------------------------------------------------- robot pose/FoV
     def get_robot_pose_2d(
@@ -386,9 +413,18 @@ class Evaluator:
         color_img_idxs: Optional[np.ndarray] = None,
         depth_img_idxs: Optional[np.ndarray] = None,
         sensors: Optional[Iterable[str]] = None,
+        save_dir: Optional[str] = None,
+        plot: bool = False,
     ) -> Dict[str, dict]:
         """Colour and depth evaluation (reference: training/trainer.py:
-        167-224); every sensor's metrics carry the colour PSNR/SSIM."""
+        167-224); every sensor's metrics carry the colour PSNR/SSIM.  With
+        ``save_dir``: ``metrics.csv`` and ``renders/``.  ``plot`` is not
+        ported (NotImplementedError)."""
+        if plot:
+            raise NotImplementedError(
+                "virus_nerf_tpu_torch Evaluator: plots are not ported yet "
+                "(ROADMAP, Queue A item 7: evaluation/plots.py)"
+            )
         ev = self.cfg.evaluation
         n = self.n_images
         if color_img_idxs is None:
@@ -408,11 +444,32 @@ class Evaluator:
             # does (reference: run_optimization.py:32)
             color = {"psnr": float("nan"), "ssim": float("nan")}
         else:
-            color = self.evaluate_color(model, occ_bool, color_img_idxs)
+            color = self.evaluate_color(
+                model, occ_bool, color_img_idxs,
+                save_dir=os.path.join(save_dir, "renders") if save_dir else None,
+            )
         metrics_dict, _ = self.evaluate_depth(
             model, occ_bool, depth_img_idxs, sensors
         )
         for key in metrics_dict:
             metrics_dict[key]["psnr"] = color["psnr"]
             metrics_dict[key]["ssim"] = color["ssim"]
+        if save_dir:
+            self.save_metrics_csv(metrics_dict,
+                                  os.path.join(save_dir, "metrics.csv"))
         return metrics_dict
+
+    @staticmethod
+    def save_metrics_csv(metrics_dict: Dict[str, dict], path: str) -> None:
+        """One row a sensor, one column a metric but the per-point
+        ``nn_dists*`` (reference: training/trainer.py:888-905; the JAX
+        package's ``save_metrics_csv``)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        sensors = list(metrics_dict)
+        cols = [k for k in (metrics_dict[sensors[0]] if sensors else [])
+                if not k.startswith("nn_dists")]
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow([""] + cols)
+            for s in sensors:
+                w.writerow([s] + [metrics_dict[s].get(c, "") for c in cols])

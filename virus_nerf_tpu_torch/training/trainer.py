@@ -19,8 +19,18 @@ exponential-step marching (every scale), the distortion loss, every image
 and pixel strategy ("closest" with its USS statistics in the state),
 real-time simulation (the images of a batch are those taken by the host
 clock's time since the loop started) and ``debug_mode``.  Not yet: the
-triplane encoder, checkpoints, intermediate evaluation and data
-parallelism.
+triplane encoder and data parallelism.
+
+With a ``test_dataset`` the loop scores the map at the end of every chunk
+(the ``mnn`` column of ``logs``: the NeRF scans' mean NND in zone 3 on
+``evaluation.num_depth_pts_per_step`` test images drawn with replacement
+from ``numpy.random.default_rng(cfg.seed)``, trainer.py:756-779).  A chunk
+is ``evaluation.eval_every_n_steps`` steps rounded down to a whole number
+of grid-update intervals, as the JAX loop's (trainer.py:564-573); the JAX
+loop runs the NGP grid's warm-up step by step and scores there at the
+multiples of ``eval_every_n_steps`` instead (trainer.py:704-743).
+``save_logs`` writes the JAX package's ``logs.csv``; ``save_checkpoint`` /
+``load_checkpoint`` keep the whole ``TrainState`` in one ``.npz``.
 
 The NGP grid update runs every ``ngp_grid.update_interval`` steps, over
 every cell while ``step < ngp_grid.warmup_steps`` (trainer.py:536-545,
@@ -30,8 +40,11 @@ the same updates at the same steps).
 
 from __future__ import annotations
 
+import csv
+import json
 import logging
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Union
@@ -42,6 +55,7 @@ import torch
 from virus_nerf_tpu_torch.configs.config import Config
 from virus_nerf_tpu_torch.data.dataset import Batch, DeviceDataset, sample_batch
 from virus_nerf_tpu_torch.data.scene import Scene
+from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
 from virus_nerf_tpu_torch.data.uss_stats import (
     USSStats,
     uss_stats_init,
@@ -75,6 +89,12 @@ METRIC_KEYS = (
 
 # the NGP grid's density threshold (reference: training/trainer.py:110)
 NGP_DENSITY_THRESHOLD = 0.01 * MAX_SAMPLES / 3**0.5
+
+# logs.csv: its column -> the ``logs`` key it is read from (the JAX
+# trainer's columns, trainer.py:137-140)
+LOG_COLUMNS = {"time": "time", "step": "step", "loss": "loss",
+               "color_loss": "loss_color", "depth_loss": "loss_depth",
+               "psnr": "psnr", "mnn": "mnn"}
 
 
 @dataclass
@@ -120,11 +140,15 @@ class Trainer:
 
     def __init__(self, cfg: Config, train_dataset: DeviceDataset,
                  scene: Optional[Scene] = None, device=None,
-                 hash_forward: str = "corners", hash_backward: str = "product"):
+                 hash_forward: str = "corners", hash_backward: str = "product",
+                 test_dataset: Optional[DeviceDataset] = None,
+                 img_wh: Optional[tuple] = None):
         """``hash_forward`` / ``hash_backward``: the additive hash's routes
         (``hash_encode``); the compute mode is ``cfg.model.dtype``.  With
         ``training.debug_mode`` the camera directions must be unit vectors
-        (AssertionError otherwise)."""
+        (AssertionError otherwise).  ``test_dataset`` (with ``scene``)
+        turns on the intermediate evaluation; ``img_wh`` is the images'
+        size, which the evaluator's field-of-view limits need."""
         _check_supported(cfg)
         self.cfg = cfg
         self.device = _full_device(
@@ -135,6 +159,11 @@ class Trainer:
                 f"dataset on {train_dataset.device}, trainer on {self.device}"
             )
         self.train_dataset = train_dataset
+        self.test_dataset = test_dataset
+        self.scene = scene
+        self.img_wh = img_wh
+        self._evaluator = None
+        self._eval_rng = np.random.default_rng(cfg.seed)
         # full float32 matrix products and convolutions on the card, and
         # float32 accumulation of bf16 products (the mixed/bfloat16 modes)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -204,7 +233,7 @@ class Trainer:
             self.ray_sel, self.nerf_sel = ("valid_uss", "USS"), ("valid_uss", "USS")
         else:
             raise ValueError("occupancy grid needs at least one depth sensor")
-        self.logs: Dict[str, list] = {"time": [], "step": []}
+        self.logs: Dict[str, list] = {"time": [], "step": [], "mnn": []}
         if t.debug_mode:
             self._debug_validate_dataset()
 
@@ -366,7 +395,11 @@ class Trainer:
         cfg = self.cfg
         if state is None:
             state = self.init_state()
-        chunk = max(1, cfg.evaluation.eval_every_n_steps)
+        chunk = max(1, min(cfg.evaluation.eval_every_n_steps,
+                           cfg.training.max_steps - state.step))
+        interval = self.grid_update_interval
+        if state.step % interval == 0 and chunk >= interval:
+            chunk -= chunk % interval
         tic = time.time()
         pending = []
         while state.step < cfg.training.max_steps:
@@ -375,7 +408,8 @@ class Trainer:
             pending.append((state.step,
                             self.train_step(state, time.time() - tic)))
             if len(pending) == chunk or state.step == cfg.training.max_steps:
-                last = self._log_chunk(pending, tic)
+                mnn = self._intermediate_eval(state, time.time() - tic)
+                last = self._log_chunk(pending, tic, mnn)
                 pending = []
                 if cfg.training.debug_mode:
                     self._debug_check_state(state, last, state.step)
@@ -423,23 +457,145 @@ class Trainer:
                 f"(range [{norms.min()}, {norms.max()}])"
             )
 
-    def _log_chunk(self, pending, tic: float) -> Dict[str, float]:
-        """One device -> host transfer for all metrics of the chunk; returns
-        the last step's metrics."""
+    # ------------------------------------------------ intermediate evaluation
+    def _get_evaluator(self) -> Evaluator:
+        if self._evaluator is None:
+            self._evaluator = Evaluator(self.cfg, self.test_dataset, self.scene,
+                                        img_wh=self.img_wh, device=self.device)
+        return self._evaluator
+
+    def _intermediate_eval(self, state: TrainState, elapse: float) -> float:
+        """The NeRF scans' mean NND in zone 3 on
+        ``num_depth_pts_per_step`` test images drawn with replacement,
+        under ``real_time_simulation`` among those taken by ``elapse``
+        (reference: training/trainer.py:274-302); NaN without a test set."""
+        if self.test_dataset is None or self.scene is None:
+            return float("nan")
+        n_pts = int(self.cfg.evaluation.num_depth_pts_per_step)
+        if n_pts <= 0:
+            return float("nan")
+        idxs = np.arange(self.test_dataset.n_images)
+        if self.cfg.training.real_time_simulation:
+            seen = idxs[self.test_dataset.times.cpu().numpy() <= elapse]
+            if seen.size:
+                idxs = seen
+        sel = self._eval_rng.choice(idxs, size=min(n_pts, idxs.size),
+                                    replace=True)
+        metrics, _ = self._get_evaluator().evaluate_depth(
+            state.model, state.grid.occ_bool, sel, sensors=("NeRF",))
+        return float(metrics["NeRF"]["nn_mean"]["zone3"])
+
+    def _log_chunk(self, pending, tic: float,
+                   mnn: float = float("nan")) -> Dict[str, float]:
+        """One device -> host transfer for all metrics of the chunk; one
+        row a step, ``mnn`` on the chunk's last row (trainer.py:781-809);
+        returns the last step's metrics."""
         keys = [k for k in METRIC_KEYS if k in pending[0][1]]
         vals = torch.stack([
             torch.stack([m[k].float() for k in keys]) for _, m in pending
         ]).cpu().numpy()
         now = time.time() - tic
-        for (step, _), row in zip(pending, vals):
+        for j, ((step, _), row) in enumerate(zip(pending, vals)):
             self.logs["time"].append(now)
             self.logs["step"].append(step)
+            self.logs["mnn"].append(mnn if j == len(pending) - 1 else math.nan)
             for k, v in zip(keys, row):
                 self.logs.setdefault(k, []).append(float(v))
         last = dict(zip(keys, vals[-1]))
         logger.info(
-            "step %5d | loss %.4f | psnr %.2f | rm %d | vr %d",
-            pending[-1][0], last["loss"], last["psnr"],
+            "step %5d | loss %.4f | psnr %.2f | mnn %.3f | rm %d | vr %d",
+            pending[-1][0], last["loss"], last["psnr"], mnn,
             int(last["rm_samples"]), int(last["vr_samples"]),
         )
         return {k: float(v) for k, v in last.items()}
+
+    def save_logs(self, path: str) -> None:
+        """``logs.csv``: the JAX trainer's columns (time, step, loss,
+        color_loss, depth_loss, psnr, mnn), one row a step (reference:
+        training/trainer_base.py:170-181)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        n = len(self.logs["step"])
+        cols = [self.logs.get(key, [math.nan] * n) for key in LOG_COLUMNS.values()]
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(list(LOG_COLUMNS))
+            w.writerows(zip(*cols))
+
+    # ------------------------------------------------------------ checkpoints
+    def state_arrays(self, state: TrainState) -> Dict[str, np.ndarray]:
+        """The state as numpy arrays keyed by the port's names: the
+        parameters (``params.<name>``), the Adam step and moments
+        (``adam.count``, ``adam.mu.<name>``, ``adam.nu.<name>``), the grid
+        (``grid.<field>``), the USS statistics (``uss_stats.<field>``), the
+        ``step`` and the random stream (``generator``).  bf16 tensors are
+        stored as float32, which holds them exactly."""
+        def host(x):
+            if torch.is_tensor(x):
+                x = x.detach()
+                return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+            return np.asarray(x, np.int64)
+
+        out = {"step": state.step, "adam.count": state.optimizer.count,
+               "generator": state.generator.get_state()}
+        for name, p in state.model.named_parameters():
+            mu, nu = state.optimizer._moments(p)
+            out.update({f"params.{name}": p, f"adam.mu.{name}": mu,
+                        f"adam.nu.{name}": nu})
+        for field, x in zip(state.grid._fields, state.grid):
+            out[f"grid.{field}"] = x
+        if state.uss_stats is not None:
+            for field, x in zip(state.uss_stats._fields, state.uss_stats):
+                out[f"uss_stats.{field}"] = x
+        return {k: host(v) for k, v in out.items()}
+
+    def save_checkpoint(self, state: TrainState, path: str) -> None:
+        """The whole state (``state_arrays``) as one ``.npz``, the config
+        beside it as ``<path>.json`` (trainer.py:811-825; the reference
+        saves the weights only, training/trainer_base.py:155-168)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            np.savez(f, **self.state_arrays(state))
+        with open(path + ".json", "w") as f:
+            json.dump(self.cfg.to_dict(), f, indent=2)
+
+    def load_checkpoint(self, path: str) -> TrainState:
+        """A checkpoint loaded into a fresh ``init_state()``, built from the
+        current config.  Every key, shape and dtype is checked against it
+        first: a config that drifted since the save raises ValueError
+        (trainer.py:827-857)."""
+        state = self.init_state()
+        want = self.state_arrays(state)
+        with np.load(path, allow_pickle=False) as f:
+            data = {k: f[k] for k in f.files}
+        missing, extra = sorted(set(want) - set(data)), sorted(set(data) - set(want))
+        if missing or extra:
+            raise ValueError(f"checkpoint {path}: keys missing {missing}, "
+                             f"unexpected {extra} (config drift?)")
+        for k, w in want.items():
+            a = data[k]
+            if a.shape != w.shape or a.dtype != w.dtype:
+                raise ValueError(
+                    f"checkpoint {path}: {k} is {a.dtype}{list(a.shape)}, "
+                    f"expected {w.dtype}{list(w.shape)} (config drift?)")
+
+        def put(old, a):
+            if torch.is_tensor(old):
+                return torch.from_numpy(a).to(device=old.device, dtype=old.dtype)
+            return int(a)
+
+        with torch.no_grad():
+            for name, p in state.model.named_parameters():
+                p.copy_(put(p, data[f"params.{name}"]))
+                for m, key in zip(state.optimizer._moments(p), ("mu", "nu")):
+                    m.copy_(put(m, data[f"adam.{key}.{name}"]))
+        state.optimizer.count = int(data["adam.count"])
+        state.grid = type(state.grid)(*(
+            put(x, data[f"grid.{field}"])
+            for field, x in zip(state.grid._fields, state.grid)))
+        if state.uss_stats is not None:
+            state.uss_stats = type(state.uss_stats)(*(
+                put(x, data[f"uss_stats.{field}"])
+                for field, x in zip(state.uss_stats._fields, state.uss_stats)))
+        state.step = int(data["step"])
+        state.generator.set_state(torch.from_numpy(data["generator"]))
+        return state
