@@ -88,7 +88,23 @@ Phases, each printed as it finishes; any failure exits non-zero:
     Printed: the fixture's write time, the decode and read times, each
     split's load time, ms/step and rays/s over steps 16-48 (host clock
     after a sync, the intermediate evaluation at step 24 taken out), the
-    intermediate and final evaluation seconds and the peak memory.
+    intermediate and final evaluation seconds and the peak memory;
+16. the RH2 run: the port's RH2 fixture writer at its defaults (75
+    trajectory points x 4 cameras = 300 observations at 244x320, 400,000
+    scene points; 244 train and 28 test images), then ``run.main`` with
+    ``dataset.name=RH2`` and ``model.scale=1.0`` (two cascades,
+    exponential stepping, the dense automatic budget, the one-row VIRUS
+    grid marched past its end) at the default config's full width, cut to
+    48 steps with the clock's limit lifted: the checks and prints of 15,
+    B1 2, B2 1 and the lattice 1 launch a step, B1 at the run's last keys;
+17. PSO: ``python -m virus_nerf_tpu_torch.run_optimization``'s ``main`` over
+    the RH2 fixture at the same width, 24 steps a particle and the
+    evaluation cut to one colour image and 4 depth scans, three particles,
+    then a second call on the same directory that resumes at t = 3 and
+    writes the fourth history row, then a ``--worker-id`` call on another
+    directory whose lease is read from the state file during its
+    evaluation: every score finite, B1 2, B2 1 and the lattice 1 launch a
+    step; the seconds of each particle.
 
 The line before the last is the card's name and power limit (nvidia-smi);
 before it, one JSON line with the kernels' results.  The last line is
@@ -347,6 +363,14 @@ def slice_segment_cases(model, xyz, dev):
         name = "slice_merged_dense" if keys.shape[0] == 1 else "slice_hashed_group"
         out.append((name, vals, keys, R))
     return out
+
+
+def b1_at_last_step(name, state, xyz, dev):
+    """B1 against its plain version at the keys of a run's last step."""
+    cases = slice_segment_cases(state.model, xyz, dev)
+    if [c[0] for c in cases] != ["slice_merged_dense", "slice_hashed_group"]:
+        fail(f"{name}: unexpected hash backward streams {[c[0] for c in cases]}")
+    return sum_results([check_segment_sum(*case, layout="ts") for case in cases])
 
 
 def xor_segment_cases(model, xyz, dev):
@@ -1021,6 +1045,144 @@ def evaluate_scale1(trainer, state, test_ds, scene, img_wh, card):
         fail(f"scale-1.0 evaluation: non-finite metrics {m}")
 
 
+def instrumented_run(main_fn, argv, loader, wrappers):
+    """``main_fn(argv)`` (``run.main``) with the kernel counts set to 0 just
+    before and read just after, instrumented: the host clock after a sync
+    at steps 16 and 48, the seconds of every intermediate and final
+    evaluation and of the final one's parts (colour renders; depth scans
+    of every sensor, where an intermediate one scores the NeRF alone),
+    each load by ``loader = (module, function name)`` and the training
+    positions of the last step.  Returns a dict of these, the metrics, the
+    trainer and its state, the launches of the whole run and of its
+    training steps alone (the evaluations march too), the wall seconds and
+    the peak device GiB."""
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+    from virus_nerf_tpu_torch.models.ngp import NGPModel
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    out = {"clock": {}, "evals": [], "loads": [], "parts": {},
+           "step_launches": {k: 0 for k in wrappers}}
+    train_step, inter_eval = Trainer.train_step, Trainer._intermediate_eval
+    train, evaluate = Trainer.train, Evaluator.evaluate
+    ev_color, ev_depth = Evaluator.evaluate_color, Evaluator.evaluate_depth
+    load = getattr(*loader)
+
+    def timed(fn, record):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record(args, kwargs, time.perf_counter() - t0)
+            return result
+        return wrapper
+
+    def step_clocked(self, state, elapse_time=None):
+        before = read_counts(wrappers)
+        result = train_step(self, state, elapse_time)
+        for k, v in read_counts(wrappers).items():
+            out["step_launches"][k] += v - before[k]
+        if state.step in (16, 48):
+            torch.cuda.synchronize()
+            out["clock"][state.step] = time.perf_counter()
+        return result
+
+    def final_depth(args, kwargs, seconds):
+        sensors = kwargs.get("sensors", args[4] if len(args) > 4 else None)
+        if tuple(sensors or ()) != ("NeRF",):
+            out["parts"]["depth"] = seconds
+
+    def keep_state(self, state=None):
+        out["trainer"], out["state"] = self, train(self, state)
+        return out["state"]
+
+    def keep_train_positions(mod, inputs):
+        if isinstance(mod, NGPModel) and torch.is_grad_enabled():
+            out["xyz"] = inputs[0].detach()
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        keep_train_positions)
+    replacements = [
+        (Trainer, "train_step", step_clocked),
+        (Trainer, "train", keep_state),
+        (Trainer, "_intermediate_eval", timed(
+            inter_eval, lambda a, k, s: out["evals"].append((a[1].step, s)))),
+        (Evaluator, "evaluate", timed(
+            evaluate, lambda a, k, s: out["evals"].append(("final", s)))),
+        (Evaluator, "evaluate_color", timed(
+            ev_color, lambda a, k, s: out["parts"].update(color=s))),
+        (Evaluator, "evaluate_depth", timed(ev_depth, final_depth)),
+        (loader[0], loader[1], timed(load, lambda a, k, s: out["loads"].append(
+            (k.get("split", a[1:2]), s)))),
+    ]
+    with contextlib.ExitStack() as patches:
+        for owner, name, replacement in replacements:
+            patches.enter_context(mock.patch.object(owner, name, replacement))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        tic = time.perf_counter()
+        out["metrics"] = main_fn(argv)
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - tic
+        out["launches"] = read_counts(wrappers)
+    hook.remove()
+    out["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def report_run(name, r, card):
+    """Check and print an instrumented 48-step ``run.main`` (training,
+    evaluations, loads, memory); returns the trainer and its state."""
+    trainer, state, metrics = r["trainer"], r["state"], r["metrics"]
+    cfg = trainer.cfg
+    check_training(name, trainer, state, 48, 16)
+    evals, clock, parts = r["evals"], r["clock"], r["parts"]
+    between = sum(s for step, s in evals if step != "final" and 16 < step < 48)
+    step_s = (clock[48] - clock[16] - between) / 32
+    inter = [s for step, s in evals if step != "final"]
+    final = [s for step, s in evals if step == "final"]
+    log(f"{name}: {r['wall']:.2f} s in all; loads "
+        f"{[(sp, round(s, 2)) for sp, s in r['loads']]} "
+        f"s; steady state steps 16-48: {1e3 * step_s:.2f} ms/step, "
+        f"{cfg.training.batch_size / step_s:.0f} rays/s (host clock after a "
+        f"sync, the evaluation at step 24 taken out); intermediate "
+        f"evaluations {[round(s, 2) for s in inter]} s, final evaluation "
+        f"{final[0]:.2f} s (colour renders of {cfg.evaluation.num_color_pts} "
+        f"images {parts['color']:.2f} s, depth scans and NND of "
+        f"{cfg.evaluation.num_depth_pts} of {trainer.test_dataset.n_images} "
+        f"images {parts['depth']:.2f} s); "
+        f"peak device memory {r['peak']:.2f} GiB; on {card}")
+    log(f"{name}: kernel launches {r['launches']}; table "
+        f"{tuple(state.model.pos_table.shape)}; NeRF nn_mean z3 "
+        f"{metrics['NeRF']['nn_mean']['zone3']:.4f} m, ToF "
+        f"{metrics['ToF']['nn_mean']['zone3']:.4f} m, USS "
+        f"{metrics['USS']['nn_mean']['zone3']:.4f} m; psnr "
+        f"{metrics['NeRF']['psnr']:.3f} ssim {metrics['NeRF']['ssim']:.4f}")
+    check_launched(name, r["launches"], ("segment_sum", "fused_adam"))
+    check_adam_per_step(name, r["launches"], 48)
+    return trainer, state
+
+
+def check_run_files(name, save, metrics, n_color):
+    """The files of a 48-step ``run.main`` (two chunks of 24)."""
+    with open(os.path.join(save, "logs.csv")) as f:
+        logs = [line.rstrip("\n").split(",") for line in f]
+    with open(os.path.join(save, "metrics.csv")) as f:
+        rows = [line.split(",")[0] for line in f][1:]
+    renders = sorted(os.listdir(os.path.join(save, "renders")))
+    missing = [n for n in ("model.npz", "model.npz.json", "hparams.json")
+               if not os.path.exists(os.path.join(save, n))]
+    mnn_rows = [r[1] for r in logs[1:] if r[-1] != "nan"]
+    log(f"{name}: files {sorted(os.listdir(save))}; logs.csv {logs[0]} "
+        f"{len(logs) - 1} rows, mnn at steps {mnn_rows}; metrics.csv rows "
+        f"{rows}; {len(renders)} renders")
+    if (missing or len(logs) != 49 or mnn_rows != ["23", "47"]
+            or rows != ["USS", "ToF", "NeRF"] or len(renders) != 3 * n_color
+            or not np.isfinite(metrics["NeRF"]["nn_mean"]["zone3"])):
+        fail(f"{name}: files missing {missing} or wrong logs/metrics/renders")
+
+
 def ethz_run(dev, wrappers, card, tmp):
     """The ETHZ run (phase 15): fixture, decode and read, ``run.main`` with
     the kernel counts set to 0 just before and read just after, the checks
@@ -1031,7 +1193,6 @@ def ethz_run(dev, wrappers, card, tmp):
     from virus_nerf_tpu_torch.data.pcl import load_pcd
     from virus_nerf_tpu_torch.data.png import read_pngs
     from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
-    from virus_nerf_tpu_torch.models.ngp import NGPModel
     from virus_nerf_tpu_torch.training.trainer import Trainer
 
     tic = time.perf_counter()
@@ -1056,43 +1217,6 @@ def ethz_run(dev, wrappers, card, tmp):
         fail(f"ETHZ fixture: {len(imgs)} images of {imgs[0].shape}, map "
              f"{cloud.shape}")
 
-    # instruments: the training positions of each step, the host clock
-    # after a sync at steps 16 and 48, the evaluations' and loads' seconds
-    seen, clock, evals, loads, run_state, parts = {}, {}, [], [], {}, {}
-    train_step, inter_eval = Trainer.train_step, Trainer._intermediate_eval
-    train, evaluate, load = Trainer.train, Evaluator.evaluate, ethz.load_ethz_dataset
-    ev_color, ev_depth = Evaluator.evaluate_color, Evaluator.evaluate_depth
-
-    def timed(fn, record):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            record(args, kwargs, time.perf_counter() - t0)
-            return out
-        return wrapper
-
-    def step_clocked(self, state, elapse_time=None):
-        out = train_step(self, state, elapse_time)
-        if state.step in (16, 48):
-            torch.cuda.synchronize()
-            clock[state.step] = time.perf_counter()
-        return out
-
-    def final_depth(args, kwargs, seconds):
-        sensors = kwargs.get("sensors", args[4] if len(args) > 4 else None)
-        if tuple(sensors or ()) != ("NeRF",):
-            parts["depth"] = seconds
-
-    def keep_state(self, state=None):
-        run_state["trainer"], run_state["state"] = self, train(self, state)
-        return run_state["state"]
-
-    def keep_train_positions(mod, inputs):
-        if isinstance(mod, NGPModel) and torch.is_grad_enabled():
-            seen["xyz"] = inputs[0].detach()
-
     save = os.path.join(tmp, "run")
     argv = ["--save-dir", save, "--override", "dataset.name=ETHZ",
             "--override", f"ethz.dataset_dir={root}",
@@ -1103,63 +1227,9 @@ def ethz_run(dev, wrappers, card, tmp):
         "chunk is eval_every_n_steps 25 rounded down to whole grid-update "
         "intervals of 8, as in the JAX loop), training.max_time 45 -> 1e9 "
         "(the step count, not the clock, ends training)")
-    hook = torch.nn.modules.module.register_module_forward_pre_hook(
-        keep_train_positions)
-    replacements = [
-        (Trainer, "train_step", step_clocked),
-        (Trainer, "train", keep_state),
-        (Trainer, "_intermediate_eval", timed(
-            inter_eval, lambda a, k, s: evals.append((a[1].step, s)))),
-        (Evaluator, "evaluate", timed(
-            evaluate, lambda a, k, s: evals.append(("final", s)))),
-        # the final evaluation's parts: colour renders, and the depth scans
-        # of every sensor (the intermediate ones score the NeRF alone)
-        (Evaluator, "evaluate_color", timed(
-            ev_color, lambda a, k, s: parts.update(color=s))),
-        (Evaluator, "evaluate_depth", timed(ev_depth, final_depth)),
-        (ethz, "load_ethz_dataset", timed(
-            load, lambda a, k, s: loads.append((k.get("split", a[1:2]), s)))),
-    ]
-    with contextlib.ExitStack() as patches:
-        for owner, name, replacement in replacements:
-            patches.enter_context(mock.patch.object(owner, name, replacement))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(wrappers)
-        tic = time.perf_counter()
-        metrics = run.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - tic
-        launches = read_counts(wrappers)
-    hook.remove()
-    trainer, state = run_state["trainer"], run_state["state"]
-    cfg = trainer.cfg
-    peak = torch.cuda.max_memory_allocated() / 2**30
-
-    # training
-    check_training("ETHZ run", trainer, state, 48, 16)
-    between = sum(s for step, s in evals if step != "final" and 16 < step < 48)
-    step_s = (clock[48] - clock[16] - between) / 32
-    inter = [s for step, s in evals if step != "final"]
-    final = [s for step, s in evals if step == "final"]
-    log(f"ETHZ run: {wall:.2f} s in all; loads {[(sp, round(s, 2)) for sp, s in loads]} "
-        f"s; steady state steps 16-48: {1e3 * step_s:.2f} ms/step, "
-        f"{cfg.training.batch_size / step_s:.0f} rays/s (host clock after a "
-        f"sync, the evaluation at step 24 taken out); intermediate "
-        f"evaluations {[round(s, 2) for s in inter]} s, final evaluation "
-        f"{final[0]:.2f} s (colour renders of {cfg.evaluation.num_color_pts} "
-        f"images {parts['color']:.2f} s, depth scans and NND of "
-        f"{cfg.evaluation.num_depth_pts} of {trainer.test_dataset.n_images} "
-        f"images {parts['depth']:.2f} s); "
-        f"peak device memory {peak:.2f} GiB; on {card}")
-    log(f"ETHZ run: kernel launches {launches}; table "
-        f"{tuple(state.model.pos_table.shape)}; NeRF nn_mean z3 "
-        f"{metrics['NeRF']['nn_mean']['zone3']:.4f} m, ToF "
-        f"{metrics['ToF']['nn_mean']['zone3']:.4f} m, USS "
-        f"{metrics['USS']['nn_mean']['zone3']:.4f} m; psnr "
-        f"{metrics['NeRF']['psnr']:.3f} ssim {metrics['NeRF']['ssim']:.4f}")
-    check_launched("ETHZ run", launches, ("segment_sum", "fused_adam"))
-    check_adam_per_step("ETHZ run", launches, 48)
+    r = instrumented_run(run.main, argv, (ethz, "load_ethz_dataset"), wrappers)
+    trainer, state = report_run("ETHZ run", r, card)
+    cfg, launches, metrics = trainer.cfg, r["launches"], r["metrics"]
     idle = [k for k in ("segment_sum_rows", "segment_sum_factors",
                         "widen_slabs", "march_lattice") if launches[k]]
     if idle or state.model.pos_table.shape != (5_710_032, 2):
@@ -1168,23 +1238,7 @@ def ethz_run(dev, wrappers, card, tmp):
     if trainer.train_dataset.directions.shape[0] != 2 or set(
             trainer.train_dataset.sensor_ids.tolist()) != {1, 3}:
         fail("ETHZ run: not two cameras and stacks 1, 3")
-
-    # the files
-    with open(os.path.join(save, "logs.csv")) as f:
-        logs = [line.rstrip("\n").split(",") for line in f]
-    with open(os.path.join(save, "metrics.csv")) as f:
-        rows = [line.split(",")[0] for line in f][1:]
-    renders = sorted(os.listdir(os.path.join(save, "renders")))
-    missing = [n for n in ("model.npz", "model.npz.json", "hparams.json")
-               if not os.path.exists(os.path.join(save, n))]
-    mnn_rows = [r[1] for r in logs[1:] if r[-1] != "nan"]
-    log(f"ETHZ run: files {sorted(os.listdir(save))}; logs.csv {logs[0]} "
-        f"{len(logs) - 1} rows, mnn at steps {mnn_rows}; metrics.csv rows "
-        f"{rows}; {len(renders)} renders")
-    if (missing or len(logs) != 49 or mnn_rows != ["23", "47"]
-            or rows != ["USS", "ToF", "NeRF"] or len(renders) != 3 * 8
-            or not np.isfinite(metrics["NeRF"]["nn_mean"]["zone3"])):
-        fail(f"ETHZ run: files missing {missing} or wrong logs/metrics/renders")
+    check_run_files("ETHZ run", save, metrics, 8)
 
     # the checkpoint in a fresh trainer: the same state, the same render
     fresh = Trainer(cfg, trainer.train_dataset, scene=trainer.scene, device=dev)
@@ -1206,11 +1260,161 @@ def ethz_run(dev, wrappers, card, tmp):
         fail("ETHZ run: the reloaded checkpoint differs from the trained state")
 
     # B1 at the keys of the run's last step: a real room's keys
-    cases = slice_segment_cases(state.model, seen["xyz"], dev)
-    if [c[0] for c in cases] != ["slice_merged_dense", "slice_hashed_group"]:
-        fail(f"unexpected hash backward streams {[c[0] for c in cases]}")
-    b1 = sum_results([check_segment_sum(*case, layout="ts") for case in cases])
-    return launches, b1
+    return launches, b1_at_last_step("ETHZ run", state, r["xyz"], dev)
+
+
+def rh2_run(dev, wrappers, card, tmp):
+    """The RH2 run (phase 16): fixture, ``run.main`` at scale 1.0 with the
+    kernel counts set to 0 just before and read just after, the checks of
+    the module doc.  Returns (fixture directory, launches of the run and of
+    its training steps, B1 at the run's last step)."""
+    from virus_nerf_tpu_torch import run
+    from virus_nerf_tpu_torch.data import rh
+    from virus_nerf_tpu_torch.data.rh_fixture import make_fixture
+
+    root = os.path.join(tmp, "rh2")
+    tic = time.perf_counter()
+    info = make_fixture(root)
+    fixture_s = time.perf_counter() - tic
+    points = np.load(os.path.join(root, "scene_points.npy"))
+    log(f"RH2 fixture: {info['n_obs']} observations (75 trajectory points x 4 "
+        f"cameras) at {info['img_wh'][0]}x{info['img_wh'][1]} and "
+        f"{points.shape[0]:,} scene points written in {fixture_s:.2f} s")
+    if info["n_obs"] != 300 or tuple(info["img_wh"]) != (244, 320) or (
+            points.shape != (400_000, 3)):
+        fail(f"RH2 fixture: {info}, points {points.shape}")
+
+    save = os.path.join(tmp, "rh2_run")
+    argv = ["--save-dir", save, "--override", "dataset.name=RH2",
+            "--override", f"rh2.dataset_dir={root}",
+            "--override", "model.scale=1.0",
+            "--override", "training.max_steps=48",
+            "--override", "training.max_time=1e9"]
+    log("RH2 run: python -m virus_nerf_tpu_torch.run " + " ".join(argv)
+        + "; cuts: training.max_steps 500 -> 48 (two chunks of 24), "
+        "training.max_time 45 -> 1e9")
+    r = instrumented_run(run.main, argv, (rh, "load_rh_dataset"), wrappers)
+    trainer, state = report_run("RH2 run", r, card)
+    cfg, launches = trainer.cfg, r["launches"]
+    per_step = {k: v / 48 for k, v in r["step_launches"].items()}
+    log(f"RH2 run: kernel launches in the training steps "
+        f"{r['step_launches']}, a step {per_step}")
+    if (cfg.cascades != 2 or cfg.exp_step_factor != 1 / 256
+            or trainer.sample_budget is not None):
+        fail(f"RH2 run: cascades {cfg.cascades}, esf {cfg.exp_step_factor}, "
+             f"budget {trainer.sample_budget}: not the scale-1.0 dense path")
+    if (per_step["segment_sum"] != 2 or per_step["march_lattice"] != 1
+            or state.model.pos_table.shape != (5_710_032, 2)):
+        fail(f"RH2 run: training launches a step {per_step}, want B1 2, "
+             f"B2 1, the lattice 1; table {tuple(state.model.pos_table.shape)}")
+    idle = [k for k in ("segment_sum_rows", "segment_sum_factors",
+                        "widen_slabs") if launches[k]]
+    if idle:
+        fail(f"RH2 run: the default routes launched {idle}")
+    ds = trainer.train_dataset
+    if (ds.n_images != 244 or trainer.test_dataset.n_images != 28
+            or set(ds.sensor_ids.tolist()) != {0, 1, 2, 3}
+            or list(ds.depths) != ["RGBD", "USS", "ToF"]):
+        fail(f"RH2 run: {ds.n_images} train and "
+             f"{trainer.test_dataset.n_images} test images, sensors "
+             f"{set(ds.sensor_ids.tolist())}, depths {list(ds.depths)}")
+    check_run_files("RH2 run", save, r["metrics"], 8)
+    return (root, launches, r["step_launches"],
+            b1_at_last_step("RH2 run", state, r["xyz"], dev))
+
+
+def pso_run(root, wrappers, card, tmp):
+    """The PSO run (phase 17): ``run_optimization.main`` over the RH2
+    fixture, then a resuming call and a worker call, with the kernel counts
+    set to 0 just before the first and read just after the last.  Returns
+    (launches of the calls and of their training steps, training steps)."""
+    from virus_nerf_tpu_torch import run_optimization
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    cuts = ["training.max_steps=24", "training.max_time=1e9",
+            "evaluation.num_color_pts=1", "evaluation.num_depth_pts=4",
+            "evaluation.num_depth_pts_per_step=4"]
+    base = ["--override", "dataset.name=RH2", "--override",
+            f"rh2.dataset_dir={root}", "--override", "model.scale=1.0"]
+    for c in cuts:
+        base += ["--override", c]
+    save = os.path.join(tmp, "pso")
+    log(f"PSO run: python -m virus_nerf_tpu_torch.run_optimization --save-dir "
+        f"{save} --max-iters 3, then --max-iters 1 on the same directory, "
+        f"then --worker-id w0 --max-iters 1 on another, over the RH2 fixture "
+        f"at the RH2 run's width; cuts: training.max_steps 500 -> 24, "
+        f"max_time 45 -> 1e9, evaluation.num_color_pts 8 -> 1, num_depth_pts "
+        f"all -> 4, num_depth_pts_per_step 16 -> 4")
+    real, train_step = run_optimization.train_and_evaluate, Trainer.train_step
+    particles, leases = [], []
+    in_training = {k: 0 for k in wrappers}
+
+    def counted_step(self, state, elapse_time=None):
+        before = read_counts(wrappers)
+        result = train_step(self, state, elapse_time)
+        for k, v in read_counts(wrappers).items():
+            in_training[k] += v - before[k]
+        return result
+
+    def timed_particle(cfg, datasets=None, **kw):
+        lease_path = os.path.join(save + "_workers", "pso_state.json")
+        if os.path.exists(lease_path):
+            with open(lease_path) as f:
+                leases.append(json.load(f)["leases"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = real(cfg, datasets=datasets, **kw)
+        torch.cuda.synchronize()
+        particles.append(time.perf_counter() - t0)
+        return metrics
+
+    with mock.patch.object(run_optimization, "train_and_evaluate",
+                           timed_particle), \
+            mock.patch.object(Trainer, "train_step", counted_step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        tic = time.perf_counter()
+        run_optimization.main(["--save-dir", save, "--max-iters", "3", *base])
+        with open(os.path.join(save, "pso_state.json")) as f:
+            t_after_first = json.load(f)["state"]["t"]
+        run_optimization.main(["--save-dir", save, "--max-iters", "1", *base])
+        pool = run_optimization.main(["--save-dir", save + "_workers",
+                                      "--worker-id", "w0", "--max-iters", "1",
+                                      "--lease-ttl", "600", *base])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        launches = read_counts(wrappers)
+    with open(os.path.join(save, "pso_history.csv")) as f:
+        rows = [line.rstrip("\n").split(",") for line in f]
+    with open(os.path.join(save + "_workers", "pso_history.csv")) as f:
+        worker_rows = [line.rstrip("\n").split(",") for line in f]
+    with pool._locked() as payload:
+        worker_state = payload
+    steps = 24 * len(particles)
+    per_step = {k: v / steps for k, v in in_training.items() if v}
+    scores = [float(r[3]) for r in rows[1:] + worker_rows[1:]]
+    log(f"PSO run: {wall:.2f} s in all; particles {[round(s, 2) for s in particles]} "
+        f"s each (training and evaluation); history iterations "
+        f"{[r[0] for r in rows[1:]]}, scores {scores} (NeRF nn_mean z3, m); "
+        f"the first call ended at t = {t_after_first}; worker lease during its "
+        f"evaluation {leases}, after it {worker_state['leases']} (t = "
+        f"{worker_state['state']['t']}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+    log(f"PSO run: kernel launches {launches}; in the training steps "
+        f"{in_training} over {steps} steps, a step {per_step}")
+    if (t_after_first != 3 or [r[0] for r in rows[1:]] != ["1", "2", "3", "4"]
+            or len(particles) != 5 or not np.all(np.isfinite(scores))):
+        fail("PSO run: did not resume at t = 3 with 4 finite history rows")
+    if (len(leases) != 1 or [(d["worker"], d["particle"]) for d in leases[0]]
+            != [("w0", 0)] or worker_state["leases"] != []
+            or worker_state["state"]["t"] != 1 or len(worker_rows) != 2):
+        fail(f"PSO run: worker lease {leases}, state {worker_state}")
+    if (per_step.get("segment_sum") != 2 or per_step.get("march_lattice") != 1):
+        fail(f"PSO run: training launches a step {per_step}, want B1 2, the "
+             f"lattice 1")
+    check_adam_per_step("PSO run", in_training, steps)
+    return launches, in_training, steps
 
 
 def main() -> None:
@@ -1305,10 +1509,7 @@ def main() -> None:
         fail("bench path: the constant-dt march launched the lattice kernel")
 
     # ---- 4. B1 at the keys of the bench path's last step
-    slice_cases = slice_segment_cases(state.model, seen["xyz"], dev)
-    if [c[0] for c in slice_cases] != ["slice_merged_dense", "slice_hashed_group"]:
-        fail(f"unexpected hash backward streams {[c[0] for c in slice_cases]}")
-    b1 = sum_results([check_segment_sum(*case, layout="ts") for case in slice_cases])
+    b1 = b1_at_last_step("bench path", state, seen["xyz"], dev)
     del trainer, state, dataset, seen
     torch.cuda.empty_cache()
 
@@ -1388,14 +1589,10 @@ def main() -> None:
     trainer = Trainer(cfg, train_ds, scene=scene, device=dev)
     state, scale1_launches, xyz, _ = run_path(
         "scale-1.0 path", trainer, 48, 16, wrappers, card)
-    scale1_cases = slice_segment_cases(state.model, xyz, dev)
-    if [c[0] for c in scale1_cases] != ["slice_merged_dense", "slice_hashed_group"]:
-        fail(f"unexpected hash backward streams {[c[0] for c in scale1_cases]}")
-    b1_scale1 = sum_results([check_segment_sum(*case, layout="ts")
-                             for case in scale1_cases])
+    b1_scale1 = b1_at_last_step("scale-1.0 path", state, xyz, dev)
     lattice = check_lattice(dev, train_ds, cfg)
     evaluate_scale1(trainer, state, test_ds, scene, info["img_wh"], card)
-    del trainer, state, xyz, scale1_cases, dataset, train_ds, test_ds
+    del trainer, state, xyz, dataset, train_ds, test_ds
     torch.cuda.empty_cache()
 
     # ---- 13. the NGP path: distortion, closest pixels, real-time simulation
@@ -1436,14 +1633,27 @@ def main() -> None:
         ethz_launches, b1_ethz = ethz_run(dev, wrappers, card, tmp)
     torch.cuda.empty_cache()
 
+    # ---- 16. the RH2 run through run.py at scale 1.0; 17. PSO over it
+    with tempfile.TemporaryDirectory() as tmp:
+        root, rh2_launches, rh2_step_launches, b1_rh2 = rh2_run(
+            dev, wrappers, card, tmp)
+        torch.cuda.empty_cache()
+        pso_launches, pso_step_launches, pso_steps = pso_run(
+            root, wrappers, card, tmp)
+    torch.cuda.empty_cache()
+
     # ms: the kernel's calls of one step at the keys (B1, B3, B4) or table
     # (B5) of its path; fused Adam on the 16 x 2 hash table; the lattice of
     # one march of the scale-1.0 path
     paths = {"bench": bench_launches, "xor": xor_launches,
              "slabs": slabs_launches, "scale1": scale1_launches,
-             "ngp": ngp_launches, "ethz": ethz_launches}
+             "ngp": ngp_launches, "ethz": ethz_launches, "rh2": rh2_launches,
+             "pso": pso_launches}
     steps = {"bench": 48, "xor": 32, "slabs": 32, "scale1": 48, "ngp": 32,
-             "ethz": 48}
+             "ethz": 48, "rh2": 48, "pso": pso_steps}
+    # a step's launches: the RH2 and PSO runs' evaluations march with the
+    # lattice too, so theirs are counted in the training steps alone
+    step_counts = dict(paths, rh2=rh2_step_launches, pso=pso_step_launches)
 
     def entry(name, key, source, replaces, main_paths, result, **extra):
         return {"name": name, "route": "cuda",
@@ -1452,14 +1662,14 @@ def main() -> None:
                 "launches": sum(paths[p][key] for p in main_paths),
                 "launches_by_path": {p: c[key] for p, c in paths.items()},
                 "launches_per_step": {p: c[key] / steps[p]
-                                      for p, c in paths.items()},
+                                      for p, c in step_counts.items()},
                 **result, **extra}
 
     print(json.dumps({"kernels": [
         entry("segment_sum_sorted", "segment_sum", "segment_sum.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:231",
-              ["bench", "scale1", "ngp", "ethz"], b1, scale1_step=b1_scale1,
-              ethz_step=b1_ethz,
+              ["bench", "scale1", "ngp", "ethz", "rh2", "pso"], b1,
+              scale1_step=b1_scale1, ethz_step=b1_ethz, rh2_step=b1_rh2,
               **skew["ts"]),
         entry("fused_adam", "fused_adam", "fused_adam.cu",
               "virus_nerf_tpu/ops/fused_adam.py:37", list(paths),
@@ -1481,7 +1691,8 @@ def main() -> None:
         # the port's own kernel: the lax.scan of _candidate_lattice, which
         # has no Pallas counterpart
         entry("march_lattice", "march_lattice", "march_lattice.cu",
-              "virus_nerf_tpu/ops/ray_march.py:114", ["scale1", "ngp"],
+              "virus_nerf_tpu/ops/ray_march.py:114",
+              ["scale1", "ngp", "rh2", "pso"],
               lattice, pallas_counterpart=None),
     ]}), flush=True)
     print(card, flush=True)

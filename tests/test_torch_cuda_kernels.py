@@ -620,3 +620,68 @@ def test_ethz_step_on_card_matches_cpu(cuda_device, tmp_path):
     diff = (sg.model.pos_table.detach().cpu() - sc.model.pos_table.detach()).abs()
     assert float((diff > 1e-6).float().mean()) <= 2e-3
     assert float(diff.max()) <= 2 * t.lr * (1 + 1e-5)
+
+
+@pytest.mark.cuda
+def test_rh2_step_on_card_matches_cpu(cuda_device, tmp_path):
+    # one grid update + train step of the RH2 path at scale 1.0 (two
+    # cascades, exponential stepping: the lattice kernel on the card; the
+    # additive 16 x 2 hash of 2^16 rows a level) on the card and on the CPU
+    # from the same weights and draws
+    from virus_nerf_tpu_torch.configs.config import Config
+    from virus_nerf_tpu_torch.data import make_dataset
+    from virus_nerf_tpu_torch.data.dataset import Batch, sample_batch
+    from virus_nerf_tpu_torch.data.rh_fixture import make_fixture
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    cfg = Config()
+    cfg.dataset.name = "RH2"
+    cfg.rh2.dataset_dir = str(tmp_path / "rh")
+    make_fixture(cfg.rh2.dataset_dir, n_times=10, img_wh=(64, 48), seed=3)
+    m, t = cfg.model, cfg.training
+    m.scale = 1.0
+    m.hash_log2_T, m.hash_max_res, m.grid_size = 16, 256, 32
+    t.batch_size, t.max_samples_per_ray = 512, 32
+    t.march_candidates = t.march_resolution = 256
+    cfg.occ_grid.batch_size = 128
+    runs = []
+    for dev in ("cpu", cuda_device):
+        ds, scene, _ = make_dataset(cfg, "train", device=dev)
+        runs.append((Trainer(cfg, ds, scene=scene, device=dev), ds))
+    (tc, dsc), (tg, _) = runs
+    assert tc.sample_budget is None and cfg.cascades == 2
+    sc, sg = tc.init_state(0), tg.init_state(0)
+    sg.model.load_state_dict({k: v.to(cuda_device)
+                              for k, v in sc.model.state_dict().items()})
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    ray_b = sample_batch(dsc, gen, tc.b_ray, {"imgs": "all", "pixs": "valid_tof"})
+    nerf_b = sample_batch(dsc, gen, tc.b_nerf, {"imgs": "all", "pixs": "valid_uss"})
+    pos_noise = torch.rand((tc.b_nerf, 32, 3), generator=gen) * 2 - 1
+    batch = sample_batch(dsc, gen, t.batch_size, t.sampling_strategy)
+    noise = torch.rand((t.batch_size,), generator=gen)
+
+    def to(b):
+        return Batch(*[{k: v.to(cuda_device) for k, v in x.items()}
+                       if isinstance(x, dict) else x.to(cuda_device) for x in b])
+
+    def grid_to_card():
+        return type(sc.grid)(*(x.to(cuda_device) if torch.is_tensor(x) else x
+                               for x in sc.grid))
+
+    sg.grid = grid_to_card()
+    tc.grid_update_on(sc, ray_b, nerf_b, pos_noise)
+    tg.grid_update_on(sg, to(ray_b), to(nerf_b), pos_noise.to(cuda_device))
+    assert float((sg.grid.occ_3d_grid.cpu() - sc.grid.occ_3d_grid).abs().max()) <= 1e-5
+    sg.grid = grid_to_card()
+    mc = tc.train_step_on(sc, batch, noise)
+    mg = tg.train_step_on(sg, to(batch), noise.to(cuda_device))
+    torch.cuda.synchronize()
+    # float32 in another op order on each device (chip_smoke's tolerances);
+    # the march is exact
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * abs(float(mc["loss"]))
+    assert int(mg["rm_samples"]) == int(mc["rm_samples"]) > 0
+    assert int(mg["vr_samples"]) == int(mc["vr_samples"])
+    diff = (sg.model.pos_table.detach().cpu() - sc.model.pos_table.detach()).abs()
+    assert float((diff > 1e-6).float().mean()) <= 2e-3
+    assert float(diff.max()) <= 2 * t.lr * (1 + 1e-5)

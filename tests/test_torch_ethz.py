@@ -190,8 +190,9 @@ def test_make_dataset_by_name(fixture_dir, tmp_path):
     cfg.dataset.name = "synthetic"
     syn, _, _ = make_dataset(cfg, "train", device="cpu")
     assert syn.n_images == 16 and syn.directions.shape[0] == 1
+    # RH2 on a directory without its files: the robotathome package
     cfg.dataset.name = "RH2"
-    with pytest.raises(NotImplementedError, match="RH2"):
+    with pytest.raises(ImportError, match="RH2"):
         make_dataset(cfg, "train", device="cpu")
     cfg.dataset.name = "nope"
     with pytest.raises(ValueError):

@@ -482,9 +482,11 @@ def test_refusals(data, tmp_path):
     c.evaluation.plot_results = True
     with pytest.raises(NotImplementedError, match="plots"):
         run.train_and_evaluate(c, device="cpu")
+    # RH2 loads (tests/test_torch_rh.py); a directory without its files
+    # needs the external robotathome package
     c = run_config(Config(), cfg.ethz.dataset_dir)
     c.dataset.name = "RH2"
-    with pytest.raises(NotImplementedError, match="RH2"):
+    with pytest.raises(ImportError, match="RH2"):
         run.train_and_evaluate(c, device="cpu")
     ev = Evaluator(cfg, ptest, pscene, img_wh=info["img_wh"], device="cpu")
     model = Trainer(cfg, pds, scene=pscene, device="cpu").init_state().model

@@ -2,10 +2,9 @@
 
 
 def make_dataset(cfg, split: str = "train", scene=None, device="cuda"):
-    """Dataset factory by config name, "synthetic" | "ETHZ" (counterpart of
-    ``virus_nerf_tpu/data/__init__.py:make_dataset``; reference:
-    training/trainer_base.py:42-65).  "RH2" is not ported yet (ROADMAP,
-    Queue A item 8).
+    """Dataset factory by config name, "synthetic" | "ETHZ" | "RH2"
+    (counterpart of ``virus_nerf_tpu/data/__init__.py:make_dataset``;
+    reference: training/trainer_base.py:42-65).
 
     Returns (DeviceDataset, Scene, info) on ``device``.
     """
@@ -19,9 +18,7 @@ def make_dataset(cfg, split: str = "train", scene=None, device="cuda"):
 
         return load_ethz_dataset(cfg, split=split, scene=scene, device=device)
     if name == "RH2":
-        raise NotImplementedError(
-            "virus_nerf_tpu_torch: the RH2 loader is not ported yet "
-            "(ROADMAP, Queue A item 8: data/rh.py with its robotathome "
-            "reader)"
-        )
+        from virus_nerf_tpu_torch.data.rh import load_rh_dataset
+
+        return load_rh_dataset(cfg, split=split, scene=scene, device=device)
     raise ValueError(f"unknown dataset {name}")

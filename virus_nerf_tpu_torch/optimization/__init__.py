@@ -1,0 +1,26 @@
+"""Hyper-parameter optimization: PSO over whole training runs.
+
+Counterpart of ``virus_nerf_tpu/optimization/`` (reference:
+optimization/particle_swarm_optimization.py,
+particle_swarm_optimization_wrapper.py, metric.py, run_optimization.py):
+the swarm, its search space, the synthetic objectives and the runners.
+The JAX package's PSO plots (matplotlib) and its population evaluator
+(one program training the swarm together) are not ported.
+"""
+
+from virus_nerf_tpu_torch.optimization.metric import SyntheticMetric  # noqa: F401
+from virus_nerf_tpu_torch.optimization.pso import (  # noqa: F401
+    DEFAULT_PSO_PARAMS,
+    HParamSpace,
+    Lease,
+    MultiWorkerPSO,
+    ParticleSwarmOptimization,
+    PSOState,
+    PSOWrapper,
+)
+from virus_nerf_tpu_torch.optimization.runner import (  # noqa: F401
+    apply_hparams,
+    run_optimization,
+    run_worker,
+    score_from_metrics,
+)

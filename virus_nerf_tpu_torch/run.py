@@ -8,8 +8,9 @@ dataset, evaluate it on the test split, and write into ``--save-dir``
 JSON is the reference's schema, so one file configures both packages.
 
 Runs on ``cuda`` unless ``--device cpu`` is passed; without a card it
-raises.  Plots (``evaluation.plot_results``) and the RH2 dataset are not
-ported and raise NotImplementedError.
+raises.  The datasets are "synthetic", "ETHZ" and "RH2"
+(``dataset.name``).  Plots (``evaluation.plot_results``) are not ported
+and raise NotImplementedError.
 """
 
 from __future__ import annotations
