@@ -54,7 +54,9 @@ Phases, each printed as it finishes; any failure exits non-zero:
     step; B5 bit-exact against its plain version, and timed, on the
     trained table's bf16 slab groups, each and per forward;
 11. one small-config step on the card against the CPU for slabs+factors
-    and for the ``mixed`` and ``bfloat16`` compute modes;
+    and for the ``mixed`` and ``bfloat16`` compute modes, of the additive
+    hash and of the XOR hash (B3 launched, and checked against its plain
+    version at the keys of each XOR step);
 12. the scale-1.0 path: the bench configuration at ``model.scale = 1.0``
     (two cascades, exponential stepping with exp_step_factor 1/256, the
     one-row VIRUS grid marched past its end as the JAX package does) on 16
@@ -104,7 +106,29 @@ Phases, each printed as it finishes; any failure exits non-zero:
     writes the fourth history row, then a ``--worker-id`` call on another
     directory whose lease is read from the state file during its
     evaluation: every score finite, B1 2, B2 1 and the lattice 1 launch a
-    step; the seconds of each particle.
+    step; the seconds of each particle;
+18. the tri-plane path: the bench configuration with
+    ``model.encoder_type="triplane"`` (8 x 4 planes at max_res 1024,
+    3 * 1024^2 * 4 parameters), 48 steps: finite, falling loss, B2 once a
+    step (the planes and the MLP leaves in one launch) and no other kernel;
+    ms/step, peak memory, B2 on the trained model's leaves against its
+    plain version, and the planes' backward time (PyTorch's accumulating
+    ``index_put_``, no kernel) beside its byte bound;
+19. data parallelism on NCCL over ``torch.cuda.device_count()`` ranks:
+    with more than one card, the bench configuration's 16 steps on every
+    rank (spawned, one card each) and the replicas bit-identical; then on
+    one card, a group of one rank: the bench configuration's 16 steps
+    (grid updates at steps 0 and 8) through ``make_dp_train_chunk``, bit
+    for bit the plain trainer's (both in PyTorch's deterministic mode), B1
+    against its plain version at the last step's keys, and 8 steps of the
+    scale-1.0 configuration (the lattice once a step, checked bit for bit);
+20. the population evaluators (deterministic mode): ``parallel``'s (a
+    Trainer a particle over ``run_optimization``'s search space, the bench
+    configuration cut to 24 steps on 16 of 24 images, each particle scored
+    on the 8 held-out images) for 2 calls of 3 particles, and
+    ``optimization.parallel_eval``'s (the loss weights) for 4 particles x
+    32 steps: every score finite and each one's particle 0 equal to its
+    serial run; B1 2 and B2 1 launch a step.
 
 The line before the last is the card's name and power limit (nvidia-smi);
 before it, one JSON line with the kernels' results.  The last line is
@@ -188,6 +212,22 @@ def device_ms(fn, part: str, iters: int = 10, per_call: int = 1):
     if not n:
         return float("nan")
     return sum(e.self_device_time_total for e in ev) / 1e3 / n * per_call
+
+
+def step_device_ms(run, n_steps: int, top: int = 5):
+    """Device ms a step over ``run()`` (``n_steps`` steps): every kernel's
+    and copy's own time from ``torch.profiler``, summed, over the steps;
+    and the ``top`` largest entries as (ms a step, name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in ev) / 1e3 / n_steps
+    return total, [(round(e.self_device_time_total / 1e3 / n_steps, 4),
+                    e.key[:80]) for e in ev[:top]]
 
 
 # ------------------------------------------------------ segment sums (B1, B3)
@@ -680,7 +720,8 @@ def reference_step(dev, hash_variant: str, dtype: str = "float32",
     layouts (XOR, and the additive routes and compute modes) take levels of
     up to 2^17 rows, so the additive hashed group has bf16 slabs.  At
     ``scale`` 1.0 the march steps exponentially over two cascades (the
-    lattice kernel on the card); the NGP grid's update is its warm-up."""
+    lattice kernel on the card); the NGP grid's update is its warm-up.
+    Returns the card's model and the positions its training step fed it."""
     from virus_nerf_tpu_torch.configs.config import Config
     from virus_nerf_tpu_torch.data.dataset import Batch, sample_batch
     from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -748,8 +789,12 @@ def reference_step(dev, hash_variant: str, dtype: str = "float32",
     grid_off = float((grid_diff > 1e-5).float().mean())
     # the step marches both on the same boolean grid
     sg.grid = grid_to(sc.grid, dev)
+    seen = {}
+    hook = sg.model.register_forward_pre_hook(
+        lambda mod, args: seen.update(xyz=args[0].detach()))
     mc = tc.train_step_on(sc, batch, noise)
     mg = tg.train_step_on(sg, to(batch), noise.to(dev))
+    hook.remove()
     loss_c, loss_g = float(mc["loss"]), float(mg["loss"])
     rel = abs(loss_g - loss_c) / abs(loss_c)
     diff = (sg.model.pos_table.detach().cpu().float()
@@ -788,6 +833,7 @@ def reference_step(dev, hash_variant: str, dtype: str = "float32",
             and float(diff.max()) <= step_tol):
         fail(f"the {label} small-config step on the card disagrees with the "
              f"CPU")
+    return sg.model, seen["xyz"]
 
 
 # ---------------------------------------------------------------- the paths
@@ -1077,9 +1123,9 @@ def instrumented_run(main_fn, argv, loader, wrappers):
             return result
         return wrapper
 
-    def step_clocked(self, state, elapse_time=None):
+    def step_clocked(self, state, elapse_time=None, group=None):
         before = read_counts(wrappers)
-        result = train_step(self, state, elapse_time)
+        result = train_step(self, state, elapse_time, group)
         for k, v in read_counts(wrappers).items():
             out["step_launches"][k] += v - before[k]
         if state.step in (16, 48):
@@ -1349,9 +1395,9 @@ def pso_run(root, wrappers, card, tmp):
     particles, leases = [], []
     in_training = {k: 0 for k in wrappers}
 
-    def counted_step(self, state, elapse_time=None):
+    def counted_step(self, state, elapse_time=None, group=None):
         before = read_counts(wrappers)
-        result = train_step(self, state, elapse_time)
+        result = train_step(self, state, elapse_time, group)
         for k, v in read_counts(wrappers).items():
             in_training[k] += v - before[k]
         return result
@@ -1415,6 +1461,386 @@ def pso_run(root, wrappers, card, tmp):
              f"lattice 1")
     check_adam_per_step("PSO run", in_training, steps)
     return launches, in_training, steps
+
+
+# ------------------------------------------------- the triplane path (18)
+def planes_backward(model, xyz, dev):
+    """The tri-plane encode's backward (PyTorch's accumulating index_put_
+    of the gather's gradient, no kernel of the port) at the positions of a
+    training step: forward alone and forward + backward by CUDA events in
+    turns, the backward their difference.  Its byte bound: the incoming
+    gradient, the corners' cells (int64) and weights read once, the planes'
+    gradient written once."""
+    from virus_nerf_tpu_torch.ops.triplane import triplane_encode
+
+    spec = model.triplane_spec
+    x_unit = (xyz.reshape(-1, 3) + model.scale) / (2.0 * model.scale)
+    planes = model.pos_table.detach().clone().requires_grad_(True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    g = torch.randn((x_unit.shape[0], spec.out_dim), generator=gen, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            triplane_encode(planes, x_unit, spec)
+
+    def fwd_bwd():
+        out = triplane_encode(planes, x_unit, spec)
+        torch.autograd.grad(out, planes, g)
+
+    fwd_ms, both_ms = time_turns([fwd, fwd_bwd])
+    n, corners = x_unit.shape[0], x_unit.shape[0] * spec.levels * 3 * 4
+    b_ms, b_by = bound_ms(4.0 * g.numel() + 12.0 * corners + 4.0 * planes.numel(),
+                          2.0 * corners * spec.feat_dim)
+    bwd_ms = both_ms - fwd_ms
+    log(f"triplane planes backward: {n} samples, {planes.numel()} plane "
+        f"entries; forward {fwd_ms:.4f} ms, forward+backward {both_ms:.4f} ms, "
+        f"backward {bwd_ms:.4f} ms, byte bound {b_ms:.4f} ms ({b_by})")
+    return {"samples": n, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def triplane_run(dev, wrappers, card):
+    """Phase 18: the bench configuration with the tri-plane encoder (8 x 4
+    planes at max_res 1024, 3 * 1024^2 * 4 parameters), 48 steps: finite,
+    falling loss, B2 once a step (the planes and the MLP in one launch), no
+    segment sum; ms/step, peak memory, B2 on the trained model's leaves
+    and the planes' backward.  Returns (launches, B2 result, backward
+    result)."""
+    from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    cfg = bench_config()
+    cfg.model.encoder_type = "triplane"
+    dataset, scene, _ = make_synthetic_dataset(n_images=16, img_wh=(160, 120),
+                                               device=dev)
+    trainer = Trainer(cfg, dataset, scene=scene, device=dev)
+    state = trainer.init_state()
+    seen = {}
+    hook = state.model.register_forward_pre_hook(
+        lambda mod, args: seen.update(xyz=args[0].detach()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    tic = time.perf_counter()
+    state = trainer.train(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = read_counts(wrappers)
+    hook.remove()
+    step_s = check_training("triplane path", trainer, state, 48, 16)
+    log(f"triplane path: {state.step} steps in {wall:.2f} s (incl. first-step "
+        f"warm-up); steady state steps 16-48: {1e3 * step_s:.2f} ms/step, "
+        f"{cfg.training.batch_size / step_s:.0f} rays/s on {card}")
+    log(f"triplane path: kernel launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if tuple(state.model.pos_table.shape) != (3 * 1024**2 * 4,):
+        fail(f"triplane path: planes {tuple(state.model.pos_table.shape)}")
+    check_adam_per_step("triplane path", launches, 48)
+    others = {k: v for k, v in launches.items() if k != "fused_adam" and v}
+    if others:
+        fail(f"triplane path: launched {others}, want B2 alone")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dev_ms, top = step_device_ms(lambda: trainer.run_steps(state, 8), 8)
+    log(f"triplane path: device time {dev_ms:.3f} ms/step over steps 48-56 "
+        f"(one grid update); largest {top}")
+    leaves = [(tuple(q.shape), q.dtype) for q in state.model.parameters()]
+    adam = check_adam(dev, "triplane model", leaves)
+    bwd = planes_backward(state.model, seen["xyz"], dev)
+    bwd.update(step_ms=1e3 * step_s, device_ms=dev_ms, peak_gib=peak)
+    return launches, adam, bwd
+
+
+# ------------------------------------------- data parallelism (19)
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (the VIRUS grid's evidence
+    ``index_add_`` sums in a fixed order, not by atomics), so two runs of
+    one computation are bit-identical; warns where an op has no
+    deterministic form, and those warnings are printed."""
+    import warnings
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    det = getattr(torch.utils, "deterministic", None)
+    fill = getattr(det, "fill_uninitialized_memory", None)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if fill is not None:  # no NaN fill of torch.empty: a cost, not an order
+        det.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        if fill is not None:
+            det.fill_uninitialized_memory = fill
+        msgs = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+        for m in msgs:
+            log(f"deterministic mode warned: {m}")
+
+
+def _dp_card_rank(rank, world, init_method, steps):
+    """A rank of the multi-card data-parallel run (one card each, NCCL):
+    the bench configuration's ``steps`` steps, then the replica check."""
+    from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from virus_nerf_tpu_torch.parallel import (
+        make_dp_train_chunk,
+        make_mesh,
+        replica_mismatches,
+    )
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    dev = torch.device("cuda", rank)
+    mesh = make_mesh(world, rank=rank, device=dev, backend="nccl",
+                     init_method=init_method)
+    dataset, scene, _ = make_synthetic_dataset(n_images=16, img_wh=(160, 120),
+                                               device=dev)
+    trainer = Trainer(bench_config(), dataset, scene=scene, device=dev)
+    state = trainer.init_state()
+    m = make_dp_train_chunk(trainer, mesh, steps)(state)
+    return {"losses": m["loss"].tolist(),
+            "mismatches": replica_mismatches(state, mesh)}
+
+
+def dp_run(dev, wrappers, card, tmp):
+    """Phase 19: data parallelism over ``torch.cuda.device_count()`` ranks
+    on NCCL.  On one card: the bench configuration, 16 steps (two chunks
+    of 8, grid updates at steps 0 and 8) through ``make_dp_train_chunk``
+    on a group of one rank, bit for bit the plain trainer's 16 steps from
+    the same seed (both in PyTorch's deterministic mode); then 8 steps of
+    the scale-1.0 configuration (the lattice kernel once a step).  With
+    more cards, the bench configuration's 16 steps on every rank and the
+    replicas checked bit-identical (then the one-card checks on card 0).
+    Returns (launches of the bench run,
+    of the scale-1.0 run, B1 at the DP path's last step, the lattice
+    check, step times)."""
+    import torch.distributed as dist
+
+    from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from virus_nerf_tpu_torch.parallel import (
+        make_dp_train_chunk,
+        make_mesh,
+        replica_mismatches,
+        spawn_ranks,
+    )
+    from virus_nerf_tpu_torch.quality_run import subset
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    world = torch.cuda.device_count()
+    log(f"DP path: {world} card(s), NCCL")
+    if world > 1:
+        results = spawn_ranks(_dp_card_rank, world, args=(16,), timeout=600,
+                              store_dir=tmp)
+        for rank, r in enumerate(results):
+            if r["mismatches"] or r["losses"] != results[0]["losses"]:
+                fail(f"DP path: rank {rank} diverged: {r['mismatches']}")
+        log(f"DP path: {world} ranks, replicas bit-identical after 16 steps; "
+            f"losses {results[0]['losses'][:2]} ... {results[0]['losses'][-2:]}")
+    # the one-rank group of the checks against the plain trainer
+    mesh = make_mesh(1, rank=0, device=dev, backend="nccl",
+                     init_method=f"file://{os.path.join(tmp, 'dp_store')}")
+    cfg = bench_config()
+    dataset, scene, _ = make_synthetic_dataset(n_images=16, img_wh=(160, 120),
+                                               device=dev)
+    times = {}
+    try:
+        with deterministic():
+            plain = Trainer(cfg, dataset, scene=scene, device=dev)
+            sp = plain.init_state()
+            plain.run_steps(sp, 8)  # warm-up, then the timed 8
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain.run_steps(sp, 8)
+            torch.cuda.synchronize()
+            times["plain_ms"] = (time.perf_counter() - t0) / 8 * 1e3
+            tr = Trainer(cfg, dataset, scene=scene, device=dev)
+            sd = tr.init_state()
+            seen = {}
+            hook = sd.model.register_forward_pre_hook(
+                lambda mod, args: seen.update(xyz=args[0].detach()))
+            chunk = make_dp_train_chunk(tr, mesh, 8)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(wrappers)
+            chunk(sd)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = chunk(sd)
+            torch.cuda.synchronize()
+            times["dp_ms"] = (time.perf_counter() - t0) / 8 * 1e3
+            launches = read_counts(wrappers)
+            times["dp_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            hook.remove()
+            a, b = plain.state_arrays(sp), tr.state_arrays(sd)
+            apart = [k for k in a if not np.array_equal(a[k], b[k])]
+            log(f"DP path (1 rank, bench configuration): 16 steps, grid "
+                f"updates {sd.grid.update_step}, loss last "
+                f"{float(m['loss'][-1]):.4f}; bit-identical to the plain "
+                f"trainer: {not apart} {apart}; steps 8-16 {times['dp_ms']:.2f} "
+                f"ms/step (plain {times['plain_ms']:.2f}; deterministic mode); "
+                f"launches {launches}; replicas {replica_mismatches(sd, mesh)}")
+            if apart or sd.grid.update_step != 2:
+                fail(f"DP path: the one-rank run differs from the plain "
+                     f"trainer in {apart}")
+            check_launched("DP path", launches, ("segment_sum", "fused_adam"))
+            check_adam_per_step("DP path", launches, 16)
+            b1 = b1_at_last_step("DP path", sd, seen["xyz"], dev)
+            times["dp_device_ms"], top = step_device_ms(lambda: chunk(sd), 8)
+            times["plain_device_ms"], _ = step_device_ms(
+                lambda: plain.run_steps(sp, 8), 8)
+            log(f"DP path: device time {times['dp_device_ms']:.3f} ms/step "
+                f"over steps 16-24 (plain trainer {times['plain_device_ms']:.3f}); "
+                f"largest {top}")
+            del plain, sp, tr, sd, seen
+            torch.cuda.empty_cache()
+
+            # scale 1.0: two cascades, exponential stepping, the lattice
+            cfg1 = scale1_config()
+            full, scene1, _ = make_synthetic_dataset(
+                n_images=24, img_wh=(160, 120), device=dev)
+            train1 = subset(full, np.arange(24) % 3 != 0)
+            tr1 = Trainer(cfg1, train1, scene=scene1, device=dev)
+            s1 = tr1.init_state()
+            torch.cuda.synchronize()
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            m1 = make_dp_train_chunk(tr1, mesh, 8)(s1)
+            torch.cuda.synchronize()
+            times["dp_scale1_ms"] = (time.perf_counter() - t0) / 8 * 1e3
+            launches1 = read_counts(wrappers)
+            log(f"DP path, scale 1.0: 8 steps, loss {float(m1['loss'][0]):.4f} "
+                f"-> {float(m1['loss'][-1]):.4f}, rm_samples last "
+                f"{int(m1['rm_samples'][-1])}; {times['dp_scale1_ms']:.2f} "
+                f"ms/step incl. the first step; launches {launches1}")
+            if launches1["march_lattice"] != 8 or not bool(
+                    torch.isfinite(m1["loss"]).all()):
+                fail(f"DP path, scale 1.0: lattice launches "
+                     f"{launches1['march_lattice']} over 8 steps, or a "
+                     f"non-finite loss")
+            check_adam_per_step("DP path, scale 1.0", launches1, 8)
+            lattice = check_lattice(dev, train1, cfg1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return launches, launches1, b1, lattice, times
+
+
+# --------------------------------------- the population evaluators (20)
+def population_run(dev, wrappers, card):
+    """Phase 20: both PSO population evaluators on the card, in PyTorch's
+    deterministic mode.  ``parallel.make_population_eval`` (a Trainer a
+    particle, the default search space of ``run_optimization``): the bench
+    configuration cut to 24 steps on 16 of 24 images, two calls of 3
+    particles, each scored by the NeRF depth evaluation on the 8 held-out
+    images; then ``optimization.parallel_eval`` (the loss weights): 4
+    particles x 32 steps.  Every score finite, and particle 0 of each equal
+    to its serial run.  Returns (launches of each, training steps of each,
+    seconds)."""
+    from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+    from virus_nerf_tpu_torch.optimization import HParamSpace
+    from virus_nerf_tpu_torch.optimization.parallel_eval import (
+        make_population_eval as weights_eval,
+    )
+    from virus_nerf_tpu_torch.optimization.runner import score_from_metrics
+    from virus_nerf_tpu_torch.parallel import (
+        make_population_eval,
+        particle_configs,
+        population_devices,
+    )
+    from virus_nerf_tpu_torch.quality_run import subset
+    from virus_nerf_tpu_torch.run_optimization import DEFAULT_LIMS
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    cfg = bench_config()
+    cfg.training.max_steps = 24
+    full, scene, info = make_synthetic_dataset(n_images=24, img_wh=(160, 120),
+                                               device=dev)
+    sel = np.arange(24) % 3 != 0
+    train, test = subset(full, sel), subset(full, ~sel)
+    space = HParamSpace(DEFAULT_LIMS)
+    rng = np.random.default_rng(0)
+    devices = population_devices()
+    be = make_population_eval(cfg, space, ((train, scene, info),
+                                           (test, scene, info)), devices=devices)
+    out = {}
+    with deterministic():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        tic = time.perf_counter()
+        calls = []
+        for _ in range(2):
+            pos = rng.random((3, space.num_dimensions))
+            calls.append((pos, be(pos)))
+        torch.cuda.synchronize()
+        out["population_s"] = time.perf_counter() - tic
+        out["population_launches"] = read_counts(wrappers)
+        out["population_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        steps = sum(c.training.max_steps for k, (pos, _) in enumerate(calls)
+                    for c in particle_configs(cfg, space, pos, k + 1))
+        out["population_steps"] = steps
+        pos, scores = calls[1]
+        cfg0 = particle_configs(cfg, space, pos, 2)[0]
+        tr = Trainer(cfg0, train, scene=scene, device=dev)
+        st = tr.train()
+        ev = Evaluator(cfg0, test, scene, img_wh=info["img_wh"], device=dev)
+        metrics, _ = ev.evaluate_depth(st.model, st.grid.occ_bool,
+                                       np.arange(test.n_images),
+                                       sensors=("NeRF",))
+        serial = score_from_metrics(metrics)
+        all_scores = [float(x) for _, s in calls for x in s]
+        log(f"population evaluator: 2 calls x 3 particles on {len(devices)} "
+            f"card(s), {steps} training steps, {out['population_s']:.2f} s; "
+            f"scores {all_scores} (NeRF nn_mean z3, m); particle 0 of call 2 "
+            f"{scores[0]!r}, its serial run {serial!r}; launches "
+            f"{out['population_launches']}; on {card}")
+        if not np.all(np.isfinite(all_scores)) or scores[0] != serial:
+            fail("population evaluator: a non-finite score, or particle 0 "
+                 "differs from its serial run")
+        check_adam_per_step("population evaluator", out["population_launches"],
+                            steps)
+        del tr, st
+        torch.cuda.empty_cache()
+
+        # the loss-weight evaluator: 4 particles x 32 steps
+        trainer = Trainer(cfg, train, scene=scene, device=dev)
+        weights = np.array([[1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 8.0, 8.0],
+                            [0.2, 1.0, 1.0, 1.0], [1.0, 1.0, 0.1, 0.1]],
+                           np.float32)
+        wbe = weights_eval(trainer, steps=32, devices=devices)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        tic = time.perf_counter()
+        wscores = wbe(weights)
+        torch.cuda.synchronize()
+        out["weights_s"] = time.perf_counter() - tic
+        out["weights_launches"] = read_counts(wrappers)
+        out["weights_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["weights_steps"] = 4 * 32
+        base = trainer.loss_weights
+        trainer.loss_weights = base._replace(color=1.0, rgbd=1.0, tof=1.0, uss=1.0)
+        s0 = trainer.init_state(seed=0)
+        done = trainer.run_steps(s0, 32, 0.0)
+        trainer.loss_weights = base
+        serial_w = float(torch.stack([m["loss"] for _, m in done[-8:]]).mean())
+        out["step_device_ms"], _ = step_device_ms(
+            lambda: trainer.run_steps(s0, 8, 0.0), 8)
+        log(f"population paths: a particle's step (the bench configuration, "
+            f"steps 32-40) takes {out['step_device_ms']:.3f} ms of device "
+            f"time; peak {out['population_peak_gib']:.2f} GiB (population "
+            f"evaluator), {out['weights_peak_gib']:.2f} GiB (loss weights)")
+        log(f"loss-weight evaluator: 4 particles x 32 steps, "
+            f"{out['weights_s']:.2f} s; scores {wscores.tolist()} (mean loss "
+            f"of the last 8 steps); particle 0 {wscores[0]!r}, its serial run "
+            f"{serial_w!r}; launches {out['weights_launches']}")
+        if not np.all(np.isfinite(wscores)) or wscores[0] != serial_w:
+            fail("loss-weight evaluator: a non-finite score, or particle 0 "
+                 "differs from its serial run")
+        check_adam_per_step("loss-weight evaluator", out["weights_launches"], 128)
+    return out
 
 
 def main() -> None:
@@ -1573,11 +1999,30 @@ def main() -> None:
     del state, xyz
     torch.cuda.empty_cache()
 
-    # ---- 11. the new routes and the compute modes, card against CPU
+    # ---- 11. the new routes and the compute modes, card against CPU; the
+    # XOR hash in the mixed and bfloat16 modes with B3 at its step's keys
     reference_step(dev, "additive", hash_forward="slabs", hash_backward="factors")
     reference_step(dev, "additive", "mixed", hash_forward="slabs",
                    hash_backward="factors")
     reference_step(dev, "additive", "bfloat16")
+    xor_modes_launches = {k: 0 for k in wrappers}
+    b3_modes = {}
+    for mode in ("mixed", "bfloat16"):
+        reset_counts(wrappers)
+        model, xyz = reference_step(dev, "xor", mode)
+        for k, v in read_counts(wrappers).items():
+            xor_modes_launches[k] += v
+        log(f"XOR {mode} step on the card: kernel launches {read_counts(wrappers)}")
+        if model.pos_table.dtype != (torch.bfloat16 if mode == "bfloat16"
+                                     else torch.float32):
+            fail(f"XOR {mode}: table {model.pos_table.dtype}")
+        b3_modes[mode] = sum_results([
+            check_segment_sum(*case, layout="rows")
+            for case in xor_segment_cases(model, xyz, dev)])
+    check_launched("XOR mixed/bfloat16 steps", xor_modes_launches,
+                   ("segment_sum_rows", "fused_adam"))
+    check_adam_per_step("XOR mixed/bfloat16 steps", xor_modes_launches, 2)
+    del model, xyz
 
     # ---- 12. the scale-1.0 path: 16 of 24 images, then the held-out 8
     cfg = scale1_config()
@@ -1642,15 +2087,36 @@ def main() -> None:
             root, wrappers, card, tmp)
     torch.cuda.empty_cache()
 
+    # ---- 18. the triplane path
+    tri_launches, adam_tri, planes_bwd = triplane_run(dev, wrappers, card)
+    torch.cuda.empty_cache()
+
+    # ---- 19. data parallelism on NCCL
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_launches, dp1_launches, b1_dp, lattice_dp, dp_times = dp_run(
+            dev, wrappers, card, tmp)
+    torch.cuda.empty_cache()
+
+    # ---- 20. the population evaluators
+    pop = population_run(dev, wrappers, card)
+    torch.cuda.empty_cache()
+
     # ms: the kernel's calls of one step at the keys (B1, B3, B4) or table
     # (B5) of its path; fused Adam on the 16 x 2 hash table; the lattice of
     # one march of the scale-1.0 path
     paths = {"bench": bench_launches, "xor": xor_launches,
              "slabs": slabs_launches, "scale1": scale1_launches,
              "ngp": ngp_launches, "ethz": ethz_launches, "rh2": rh2_launches,
-             "pso": pso_launches}
+             "pso": pso_launches, "xor_modes": xor_modes_launches,
+             "triplane": tri_launches, "dp": dp_launches,
+             "dp_scale1": dp1_launches,
+             "population": pop["population_launches"],
+             "weights_eval": pop["weights_launches"]}
     steps = {"bench": 48, "xor": 32, "slabs": 32, "scale1": 48, "ngp": 32,
-             "ethz": 48, "rh2": 48, "pso": pso_steps}
+             "ethz": 48, "rh2": 48, "pso": pso_steps, "xor_modes": 2,
+             "triplane": 48, "dp": 16, "dp_scale1": 8,
+             "population": pop["population_steps"],
+             "weights_eval": pop["weights_steps"]}
     # a step's launches: the RH2 and PSO runs' evaluations march with the
     # lattice too, so theirs are counted in the training steps alone
     step_counts = dict(paths, rh2=rh2_step_launches, pso=pso_step_launches)
@@ -1668,17 +2134,20 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("segment_sum_sorted", "segment_sum", "segment_sum.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:231",
-              ["bench", "scale1", "ngp", "ethz", "rh2", "pso"], b1,
+              ["bench", "scale1", "ngp", "ethz", "rh2", "pso", "dp",
+               "dp_scale1", "population", "weights_eval"], b1,
               scale1_step=b1_scale1, ethz_step=b1_ethz, rh2_step=b1_rh2,
-              **skew["ts"]),
+              dp_step=b1_dp, **skew["ts"]),
         entry("fused_adam", "fused_adam", "fused_adam.cu",
               "virus_nerf_tpu/ops/fused_adam.py:37", list(paths),
               adam[xor_table_n], bf16_params=adam_bf16,
-              all_leaves=adam_leaves, all_leaves_bf16_table=adam_leaves_bf16),
+              all_leaves=adam_leaves, all_leaves_bf16_table=adam_leaves_bf16,
+              triplane_leaves=adam_tri),
         entry("group_segment_sum_t_sorted", "segment_sum_rows",
               "segment_sum_rows.cu",
-              "virus_nerf_tpu/ops/segment_sum_pallas.py:101", ["xor"], b3,
-              **skew["rows"]),
+              "virus_nerf_tpu/ops/segment_sum_pallas.py:101",
+              ["xor", "xor_modes"], b3, xor_mixed_step=b3_modes["mixed"],
+              xor_bfloat16_step=b3_modes["bfloat16"], **skew["rows"]),
         entry("group_segment_sum_tsf_sorted", "segment_sum_factors",
               "segment_sum_factors.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:333", ["slabs"],
@@ -1692,8 +2161,8 @@ def main() -> None:
         # has no Pallas counterpart
         entry("march_lattice", "march_lattice", "march_lattice.cu",
               "virus_nerf_tpu/ops/ray_march.py:114",
-              ["scale1", "ngp", "rh2", "pso"],
-              lattice, pallas_counterpart=None),
+              ["scale1", "ngp", "rh2", "pso", "dp_scale1"],
+              lattice, dp_scale1_check=lattice_dp, pallas_counterpart=None),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

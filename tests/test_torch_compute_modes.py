@@ -1,8 +1,10 @@
 """The port's ``mixed`` and ``bfloat16`` compute modes against the JAX
 package: ``NGPModel(compute_dtype=...)`` against the JAX ``NGPModel`` with
-the same mode and converted parameters (models/ngp.py:107-168), and Adam on
-a bf16 parameter against ``fused_adam`` + ``optax.apply_updates``
-(ops/fused_adam.py:133-142)."""
+the same mode and converted parameters (models/ngp.py:107-168), for the
+additive and the XOR hash, 8 training steps of the XOR hash in each mode
+against the JAX trainer's bodies on their draws (``test_torch_slice.py``'s
+pair), and Adam on a bf16 parameter against ``fused_adam`` +
+``optax.apply_updates`` (ops/fused_adam.py:133-142)."""
 
 import jax
 import jax.numpy as jnp
@@ -18,15 +20,18 @@ from virus_nerf_tpu_torch.convert import params_from_jax
 from virus_nerf_tpu_torch.models.ngp import NGPModel
 from virus_nerf_tpu_torch.ops.fused_adam import FusedAdam
 
+from test_torch_slice import Pair, _port_batch
+
 torch.set_num_threads(1)
 
 MODEL_KW = dict(levels=16, feature_per_level=2, log2_T=12, max_res=256)
 
 
-def _models(mode, seed=0):
-    jm = JNGPModel(compute_dtype=mode, **MODEL_KW)
+def _models(mode, seed=0, hash_variant="additive"):
+    jm = JNGPModel(compute_dtype=mode, hash_variant=hash_variant, **MODEL_KW)
     params = jm.init(jax.random.PRNGKey(seed))
-    tm = NGPModel(compute_dtype=mode, device="cpu", **MODEL_KW)
+    tm = NGPModel(compute_dtype=mode, hash_variant=hash_variant, device="cpu",
+                  **MODEL_KW)
     tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params),
                                        device="cpu"))
     return jm, params, tm
@@ -41,7 +46,16 @@ def _points(n=2048, seed=0):
 
 @pytest.mark.parametrize("mode", ["mixed", "bfloat16"])
 def test_model_forward_matches_jax(mode):
-    jm, params, tm = _models(mode)
+    check_model_forward(mode, "additive")
+
+
+@pytest.mark.parametrize("mode", ["mixed", "bfloat16"])
+def test_xor_model_forward_matches_jax(mode):
+    check_model_forward(mode, "xor")
+
+
+def check_model_forward(mode, hash_variant):
+    jm, params, tm = _models(mode, hash_variant=hash_variant)
     want_table = np.float32 if mode == "mixed" else ml_dtypes.bfloat16
     assert np.asarray(params.pos_table).dtype == want_table
     assert tm.pos_table.dtype == (torch.float32 if mode == "mixed"
@@ -60,16 +74,25 @@ def test_model_forward_matches_jax(mode):
     np.testing.assert_allclose(rt.detach().numpy(), np.asarray(rj), rtol=0,
                                atol=2**-8)
     # and the mode is not float32: bf16 products move the outputs
-    _, _, t32 = _models("float32")
+    _, _, t32 = _models("float32", hash_variant=hash_variant)
     s32, _ = t32(torch.from_numpy(x), torch.from_numpy(d))
     assert np.abs(st.detach().numpy() - s32.detach().numpy()).max() > 1e-4
 
 
 @pytest.mark.parametrize("mode", ["mixed", "bfloat16"])
 def test_table_gradient_is_bf16_valued(mode):
+    check_table_gradient_is_bf16_valued(mode, "additive")
+
+
+@pytest.mark.parametrize("mode", ["mixed", "bfloat16"])
+def test_xor_table_gradient_is_bf16_valued(mode):
+    check_table_gradient_is_bf16_valued(mode, "xor")
+
+
+def check_table_gradient_is_bf16_valued(mode, hash_variant):
     # the encode runs on a bf16 table in both modes, so the table gradient
     # is bf16-rounded (in float32 storage in mixed mode), as in JAX
-    _, _, tm = _models(mode)
+    _, _, tm = _models(mode, hash_variant=hash_variant)
     x, d = _points(256)
     sigma, rgb = tm(torch.from_numpy(x), torch.from_numpy(d))
     (sigma.sum() + rgb.sum()).backward()
@@ -142,8 +165,54 @@ def test_bf16_leaf_converts_exactly():
 
 
 def test_xor_hash_refuses_other_modes():
-    with pytest.raises(NotImplementedError):
-        NGPModel(hash_variant="xor", compute_dtype="mixed", device="cpu",
-                 **MODEL_KW)
+    # the XOR hash runs in every compute mode but takes one route: the
+    # slabs forward and the factors backward stay refused
+    for routes in ({"hash_forward": "slabs"}, {"hash_backward": "factors"},
+                   {"hash_forward": "slabs", "hash_backward": "factors"}):
+        for mode in ("float32", "mixed", "bfloat16"):
+            with pytest.raises(NotImplementedError, match="corners/product"):
+                NGPModel(hash_variant="xor", compute_dtype=mode, device="cpu",
+                         **routes, **MODEL_KW)
+    for mode in ("mixed", "bfloat16"):
+        NGPModel(hash_variant="xor", compute_dtype=mode, device="cpu", **MODEL_KW)
     with pytest.raises(ValueError):
         NGPModel(compute_dtype="float16", device="cpu", **MODEL_KW)
+
+
+@pytest.fixture(scope="module", params=["mixed", "bfloat16"])
+def xor_mode_pair(request):
+    return Pair("xor", request.param)
+
+
+def test_xor_eight_steps_in_the_mode_match_jax(xor_mode_pair):
+    # both sides in the mode, from the same parameters and grid, on the JAX
+    # bodies' draws: the same bf16 roundings of the table rows and the MLP
+    # products; the table gradient comes back bf16-rounded on both sides
+    pair = xor_mode_pair
+    js, ps = pair.start(seed=1)
+    want = torch.bfloat16 if pair.cfg.model.dtype == "bfloat16" else torch.float32
+    assert ps.model.pos_table.dtype == want
+    losses_j, losses_p, rm_j, rm_p = [], [], [], []
+    for step in range(8):
+        if step % pair.cfg.occ_grid.update_interval == 0:
+            draws = pair.occ_draws(js)
+            js = pair.occ_body(js, pair.jds, pair.et)
+            pair.pt.grid_update_on(ps, *draws)
+        batch, _, noise = pair.train_draws(js)
+        js, mj = pair.train_body(js, pair.jds, pair.et)
+        mp = pair.pt.train_step_on(ps, _port_batch(batch), noise)
+        losses_j.append(float(mj["loss"]))
+        losses_p.append(float(mp["loss"]))
+        rm_j.append(int(mj["rm_samples"]))
+        rm_p.append(int(mp["rm_samples"]))
+    assert ps.step == 8 and ps.grid.update_step == 2
+    assert ps.model.pos_table.dtype == want
+    assert rm_p == rm_j  # the march is exact
+    # a bf16 rounding that falls the other way (float32 sums in another
+    # order just before a cast) moves an activation by 2^-8 relative, and
+    # an Adam step of a bf16 table entry by a bf16 ulp: held to 1e-3
+    # (chip_smoke.py's bf16 tolerance); measured 9.0e-8 at step 0 in both
+    # modes, 8.7e-5 (mixed) and 7.5e-5 (bfloat16) at most over the 8 steps
+    np.testing.assert_allclose(losses_p, losses_j, rtol=1e-3)
+    np.testing.assert_allclose(losses_p[0], losses_j[0], rtol=1e-4)
+    assert np.mean(losses_p[-2:]) < np.mean(losses_p[:2])

@@ -13,6 +13,7 @@ handed to the port's ``train_step_on`` / ``grid_update_on`` /
 ``ngp_update_on``.  Small sizes: 4 levels x F = 2 of 2^12 rows, a 32^3
 grid, 128 rays."""
 
+import csv
 import inspect
 import os
 import subprocess
@@ -436,9 +437,9 @@ def test_real_time_train_step_draws_only_taken_images(data):
     seen = []
     step_on = pair.pt.train_step_on
 
-    def spy(state, batch, noise):
+    def spy(state, batch, noise, group=None):
         seen.append(batch.times.numpy())
-        return step_on(state, batch, noise)
+        return step_on(state, batch, noise, group)
 
     pair.pt.train_step_on = spy
     pair.pt.grid_update(ps, elapse_time=4.0)
@@ -472,42 +473,75 @@ def test_trainer_accepts_the_option(data, field, value):
 
 
 def test_trainer_refuses_only_the_triplane_encoder(data):
+    # every encoder of the JAX trainer is ported now, the tri-plane one
+    # included: what the trainer refuses is an encoder it does not know
     _, _, pds, pscene = data
     cfg = options_config()
     cfg.model.encoder_type = "triplane"
-    with pytest.raises(NotImplementedError, match="encoder_type"):
+    Trainer(cfg, pds, scene=pscene, device="cpu")
+    cfg.model.encoder_type = "octree"
+    with pytest.raises(ValueError, match="encoder_type"):
         Trainer(cfg, pds, scene=pscene, device="cpu")
 
 
-def test_port_trains_every_option_without_jax():
+def test_port_trains_every_option_without_jax(tmp_path):
     # the port's own loop and draws, in a fresh interpreter: 8 steps each of
     # NGP + distortion + closest + real-time simulation + debug_mode at
-    # scale 1.0, and of the VIRUS grid at scale 1.0; finite losses, the
+    # scale 1.0, of the VIRUS grid at scale 1.0 and of the tri-plane
+    # encoder; 8 data-parallel steps on one gloo rank; both PSO population
+    # evaluators (2 particles, 4 steps each); finite losses and scores, the
     # NGP grid updated at steps 0 (warm-up) and 4, and neither jax nor any
     # module of the JAX package imported
     code = "\n".join([
         "import sys",
+        "import numpy as np",
         "import torch",
         "from virus_nerf_tpu_torch.configs.config import Config",
         inspect.getsource(options_config),
         "from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset",
         "from virus_nerf_tpu_torch.training.trainer import Trainer",
         "torch.set_num_threads(1)",
-        f"ds, scene, _ = make_synthetic_dataset(device='cpu', **{DATA_KW!r})",
+        f"ds, scene, info = make_synthetic_dataset(device='cpu', **{DATA_KW!r})",
         f"CLOSEST = {CLOSEST!r}",
         "for opts in (dict(grid='ngp', distortion=1e-2, closest=True,",
-        "                  real_time=True, debug=True), dict()):",
-        "    tr = Trainer(options_config(**opts), ds, scene=scene, device='cpu')",
+        "                  real_time=True, debug=True), dict(), 'triplane'):",
+        "    cfg = options_config(**(opts if opts != 'triplane' else {}))",
+        "    if opts == 'triplane':",
+        "        cfg.model.encoder_type = 'triplane'",
+        "    tr = Trainer(cfg, ds, scene=scene, device='cpu')",
         "    st = tr.train()",
         "    losses = tr.logs['loss']",
         "    assert st.step == 8 and len(losses) == 8, (st.step, losses)",
         "    assert all(l == l and abs(l) < 1e6 for l in losses), losses",
-        "    if opts:",
+        "    if opts and opts != 'triplane':",
         "        assert st.uss_stats.counts.sum() > 0",
         "        assert 0 < st.grid.occ_bool.float().mean() < 1",
         "        assert 'loss_distortion' in tr.logs",
         "    else:",
         "        assert st.grid.update_step == 2",
+        "from virus_nerf_tpu_torch.parallel import make_dp_train_chunk, make_mesh",
+        f"mesh = make_mesh(1, rank=0, device='cpu', init_method={'file://' + str(tmp_path / 'store')!r})",
+        "tr = Trainer(options_config(), ds, scene=scene, device='cpu')",
+        "st = tr.init_state()",
+        "m = make_dp_train_chunk(tr, mesh, 8)(st)",
+        "assert st.step == 8 and bool(torch.isfinite(m['loss']).all()), m",
+        "torch.distributed.destroy_process_group()",
+        "from virus_nerf_tpu_torch.optimization import HParamSpace",
+        "from virus_nerf_tpu_torch.optimization.parallel_eval import (",
+        "    make_population_eval as weights_eval)",
+        "from virus_nerf_tpu_torch.parallel import make_population_eval",
+        "cfg = options_config(scale=0.5, budget=128 * 12)",
+        "cfg.training.max_steps = cfg.evaluation.eval_every_n_steps = 4",
+        "ev = cfg.evaluation",
+        "ev.res_angular, ev.res_map, ev.batch_size, ev.max_samples_per_ray = (",
+        "    32, 64, 512, 32)",
+        "space = HParamSpace({'occ_grid': {'update_interval': [2, 6]}})",
+        "be = make_population_eval(cfg, space, ((ds, scene, info),) * 2,",
+        "                          devices=['cpu'])",
+        "assert np.all(np.isfinite(be(np.array([[0.2], [0.8]])))), 'population'",
+        "tr = Trainer(cfg, ds, scene=scene, device='cpu')",
+        "be = weights_eval(tr, steps=4, score_tail=2)",
+        "assert np.all(np.isfinite(be(np.ones((2, 4), np.float32)))), 'weights'",
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')",
         "       or m.startswith('virus_nerf_tpu.') or m == 'virus_nerf_tpu']",
         "assert not bad, bad",
@@ -517,3 +551,38 @@ def test_port_trains_every_option_without_jax():
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_ngp_warm_up_scores_and_logs_as_jax(data, tmp_path):
+    # the NGP grid's warm-up runs step by step in both loops
+    # (trainer.py:704-743): warm-up to step 6, updates every 4, so step by
+    # step through step 7, scored after steps 0, 2, 4 and 6; then chunks
+    # of 2 (eval_every 2, below the interval: not rounded), scored after
+    # steps 9 and 11.  Each loop makes its own draws: the rows, the steps
+    # and every column's NaN pattern agree
+    jds, jscene, pds, pscene = data
+    cfg = options_config(scale=1.0, grid="ngp")
+    cfg.ngp_grid.update_interval, cfg.ngp_grid.warmup_steps = 4, 6
+    cfg.evaluation.eval_every_n_steps = 2
+    cfg.training.max_steps = 12
+    ev = cfg.evaluation
+    ev.num_depth_pts_per_step = 1
+    ev.res_angular, ev.res_map, ev.batch_size, ev.max_samples_per_ray = (
+        32, 64, 512, 32)
+    jt = JTrainer(cfg, jds, test_dataset=jds, scene=jscene, img_wh=(32, 24))
+    jt.train()
+    jt.save_logs(str(tmp_path / "jax.csv"))
+    pt = Trainer(cfg, pds, scene=pscene, device="cpu", test_dataset=pds,
+                 img_wh=(32, 24))
+    pt.train()
+    pt.save_logs(str(tmp_path / "port.csv"))
+    with open(tmp_path / "jax.csv") as f:
+        want = list(csv.reader(f))
+    with open(tmp_path / "port.csv") as f:
+        got = list(csv.reader(f))
+    assert got[0] == want[0] and len(got) == len(want) == 13
+    for g, w in zip(got[1:], want[1:]):
+        assert g[1] == w[1]  # the step
+        assert [v == "nan" for v in g] == [v == "nan" for v in w], (g, w)
+    scored = [int(r[1]) for r in got[1:] if r[-1] != "nan"]
+    assert scored == [0, 2, 4, 6, 9, 11]

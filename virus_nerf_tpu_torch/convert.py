@@ -37,8 +37,9 @@ def _leaf(x, device):
 
 def params_from_jax(params, device="cuda") -> Dict[str, torch.Tensor]:
     """``NGPParams`` -> ``NGPModel`` state dict.  MLP weights go from
-    JAX's (in, out) to ``nn.Linear``'s (out, in); the table keeps its dtype
-    (bf16 in the ``bfloat16`` compute mode)."""
+    JAX's (in, out) to ``nn.Linear``'s (out, in); the position table (the
+    hash table, or the tri-plane encoder's flat planes) keeps its shape and
+    dtype (bf16 in the ``bfloat16`` compute mode)."""
     out = {"pos_table": _leaf(params.pos_table, device)}
     for net, ws in (("xyz_net", params.xyz_w), ("rgb_net", params.rgb_w)):
         for i, w in enumerate(ws):

@@ -51,6 +51,14 @@ class DeviceDataset(NamedTuple):
         return self.poses.device
 
 
+def dataset_to(dataset: DeviceDataset, device) -> DeviceDataset:
+    """The dataset with every tensor on ``device`` (``jax.device_put``)."""
+    return DeviceDataset(*(
+        {k: v.to(device) for k, v in x.items()} if isinstance(x, dict)
+        else x.to(device) for x in dataset
+    ))
+
+
 class Batch(NamedTuple):
     img_idxs: torch.Tensor  # (B,)
     pix_idxs: torch.Tensor  # (B,)

@@ -12,7 +12,10 @@ updated from
 
 as log-odds evidence ``log(Po/Pe)`` summed per cell (``index_add_``), then
 a Bayes update in log-odds, the warmup decay toward 0.5 and the boolean
-grid the march reads.  The state holds no Morton bitfield: training never
+grid the march reads.  Under data parallelism (``group``) each rank
+computes the evidence of its shard of the update batches, with the NeRF
+threshold's mean density averaged over the ranks, and the evidence is
+summed over them before one replicated application.  The state holds no Morton bitfield: training never
 reads it, and ``occ_grid_refresh_bitfield`` builds it for export.
 """
 
@@ -24,6 +27,10 @@ import numpy as np
 import torch
 
 from virus_nerf_tpu_torch.grids.base import bitfield_from_grid
+from virus_nerf_tpu_torch.utils.distributed import (
+    all_reduce_mean_,
+    all_reduce_sum_,
+)
 
 
 class OccGridHParams(NamedTuple):
@@ -169,12 +176,15 @@ def _evidence_add_(delta, gs: int, cell_idxs, probs_occ, probs_emp, weight):
 
 def occ_grid_delta(hp: OccGridHParams, density_fn: Callable,
                    ray_batch: Optional[dict] = None,
-                   nerf_batch: Optional[dict] = None, nerf_noise=None):
+                   nerf_batch: Optional[dict] = None, nerf_noise=None,
+                   group=None):
     """Log-odds evidence of one update, a dense (gs^3,) vector.
 
     Batches are dicts with 'rays_o' (B, 3), 'rays_d' (B, 3) and 'meas' (B,)
     (NaN = no reading, masked to a no-op).  ``nerf_noise`` (B, M, 3) in
-    [-1, 1) jitters the NeRF batch's cell positions.
+    [-1, 1) jitters the NeRF batch's cell positions.  Under ``group`` the
+    NeRF threshold's mean density is the mean over the ranks
+    (occupancy_grid.py:229-231).
     """
     gs = hp.grid_size
     some = ray_batch if ray_batch is not None else nerf_batch
@@ -193,7 +203,8 @@ def occ_grid_delta(hp: OccGridHParams, density_fn: Callable,
             nerf_batch["rays_o"], nerf_batch["rays_d"], hp, noise=nerf_noise
         )
         density = density_fn(pos.reshape(-1, 3))
-        p_occ, p_emp = nerf_density_probs(density, hp)
+        mean_density = all_reduce_mean_(density.mean(), group)
+        p_occ, p_emp = nerf_density_probs(density, hp, mean_density)
         weight = valid[:, None].float().expand(-1, hp.M).reshape(-1)
         _evidence_add_(delta, gs, idxs.reshape(-1, 3), p_occ, p_emp, weight)
     return delta
@@ -224,9 +235,12 @@ def occ_grid_refresh_bitfield(state: OccGridState, hp: OccGridHParams):
 def occ_grid_update(state: OccGridState, hp: OccGridHParams,
                     density_fn: Callable, ray_batch: Optional[dict] = None,
                     nerf_batch: Optional[dict] = None,
-                    nerf_noise=None) -> OccGridState:
+                    nerf_noise=None, group=None) -> OccGridState:
     """One full VIRUS grid update (reference:
     modules/occupancy_grid.py:64-106): evidence, then its application.  The
-    caller draws the NeRF position noise (see ``occ_grid_delta``)."""
-    delta = occ_grid_delta(hp, density_fn, ray_batch, nerf_batch, nerf_noise)
-    return occ_grid_apply_delta(state, hp, delta)
+    caller draws the NeRF position noise (see ``occ_grid_delta``).  Under
+    ``group`` the batches are this rank's shard and the evidence is summed
+    over the ranks (occupancy_grid.py:313-316)."""
+    delta = occ_grid_delta(hp, density_fn, ray_batch, nerf_batch, nerf_noise,
+                           group)
+    return occ_grid_apply_delta(state, hp, all_reduce_sum_(delta, group))

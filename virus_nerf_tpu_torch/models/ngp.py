@@ -1,4 +1,4 @@
-"""Instant-NGP model: hash encoder + tiny MLPs + SH directions.
+"""Instant-NGP model: hash/triplane encoder + tiny MLPs + SH directions.
 
 Counterpart of ``NGPModel`` (virus_nerf_tpu/models/ngp.py; reference:
 modules/networks.py:32-191) as an ``nn.Module``:
@@ -9,11 +9,14 @@ modules/networks.py:32-191) as an ``nn.Module``:
   sigmoid output, input SH(dir) ++ xyz features;
 - degree-4 SH on (d+1)/2 with d normalized.
 
-The hash encoder in both variants (``hash_variant``: "additive", the JAX
-package's production hash, or "xor", the reference's own,
-models/ngp.py:154-155); the additive one takes the routes ``hash_forward``
-and ``hash_backward`` of ``hash_encode``.  The compute modes
-(``compute_dtype``, models/ngp.py:73-78, 107-168):
+The position encoder (``pos_encoder_type``): the hash grid in both
+variants (``hash_variant``: "additive", the JAX package's production hash,
+or "xor", the reference's own, models/ngp.py:154-155; the additive one
+takes the routes ``hash_forward`` and ``hash_backward`` of
+``hash_encode``), or the tri-plane grid ("triplane", models/ngp.py:95-105:
+8 levels x 4 features on planes of ``max_res^2`` cells, the planes a flat
+parameter in ``pos_table``).  The compute modes (``compute_dtype``,
+models/ngp.py:73-78, 107-168):
 
 - ``float32``: everything float32;
 - ``mixed``: float32 parameters; the table is cast to bf16 inside the
@@ -24,8 +27,10 @@ and ``hash_backward`` of ``hash_encode``.  The compute modes
   reference's half-precision table); the MLP weights stay float32 and are
   cast at use, as in JAX.
 
-The XOR encoder runs in ``float32`` only; the triplane encoder is not
-ported.
+Every encoder runs in every mode; the XOR hash takes one route,
+corners/product: its rows are gathered and cast to float32 before the
+weighted sum, and its table gradient is summed in float32 (B3) and cast
+to the table's dtype at the end (hash_encoder.py:962-971, 1011).
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ from virus_nerf_tpu_torch.ops.hash_encoder import (
     hash_encode_xor,
 )
 from virus_nerf_tpu_torch.ops.sh import sh_encode
+from virus_nerf_tpu_torch.ops.triplane import TriPlaneSpec, triplane_encode
 
+ENCODER_TYPES = ("hash", "triplane")
 HASH_VARIANTS = ("additive", "xor")
 COMPUTE_DTYPES = ("float32", "mixed", "bfloat16")
 
@@ -62,6 +69,7 @@ class NGPModel(nn.Module):
     def __init__(
         self,
         scale: float = 0.5,
+        pos_encoder_type: str = "hash",
         levels: int = 16,
         feature_per_level: int = 2,
         log2_T: int = 19,
@@ -83,6 +91,9 @@ class NGPModel(nn.Module):
         """``generator`` draws the initial weights and lives on ``device``
         (the default generator when None)."""
         super().__init__()
+        if pos_encoder_type not in ENCODER_TYPES:
+            raise ValueError(f"unknown pos_encoder_type {pos_encoder_type!r} "
+                             f"(have {ENCODER_TYPES})")
         if hash_variant not in HASH_VARIANTS:
             raise ValueError(f"unknown hash_variant {hash_variant!r} (have "
                              f"{HASH_VARIANTS})")
@@ -94,14 +105,12 @@ class NGPModel(nn.Module):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r} (have "
                              f"{COMPUTE_DTYPES})")
-        if hash_variant == "xor" and (
-            (hash_forward, hash_backward, compute_dtype)
-            != ("corners", "product", "float32")
-        ):
+        if hash_variant == "xor" and (hash_forward, hash_backward) != (
+                "corners", "product"):
             raise NotImplementedError(
-                "the XOR hash has one route (corners/product) and runs in "
-                "float32 only"
+                "the XOR hash has one route, corners/product"
             )
+        self.pos_encoder_type = pos_encoder_type
         self.hash_variant = hash_variant
         self.hash_forward, self.hash_backward = hash_forward, hash_backward
         self.compute_dtype = compute_dtype
@@ -113,18 +122,30 @@ class NGPModel(nn.Module):
             levels=levels, feat_dim=feature_per_level, base_res=base_res,
             max_res=max_res, max_params=2**log2_T,
         )
-        table = self.hash_spec.init_table(generator=generator, device=device)
+        # reference: 8 levels x 4 features for the tri-plane
+        # (modules/networks.py:81-87)
+        self.triplane_spec = TriPlaneSpec.create(max_res=max_res, feat_dim=4)
+        if pos_encoder_type == "hash":
+            table = self.hash_spec.init_table(generator=generator, device=device)
+        else:
+            table = self.triplane_spec.init_planes(generator=generator,
+                                                   device=device)
         if compute_dtype == "bfloat16":
             table = table.to(torch.bfloat16)
         self.pos_table = nn.Parameter(table)
         xyz_dims = (
-            [self.hash_spec.out_dim] + [xyz_net_width] * xyz_net_depth
+            [self.pos_out_dim] + [xyz_net_width] * xyz_net_depth
             + [xyz_net_out_dim]
         )
         rgb_dims = [16 + xyz_net_out_dim] + [rgb_net_width] * rgb_net_depth + [3]
         self.xyz_net = _mlp(xyz_dims, generator, device)
         self.rgb_net = _mlp(rgb_dims, generator, device)
         self._consts = None
+
+    @property
+    def pos_out_dim(self) -> int:
+        spec = self.hash_spec if self.pos_encoder_type == "hash" else self.triplane_spec
+        return spec.out_dim
 
     @property
     def cascades(self) -> int:
@@ -149,12 +170,16 @@ class NGPModel(nn.Module):
         return h.float()
 
     def _encode_pos(self, x_unit):
+        # "mixed": the float32 table is cast inside the graph, so its
+        # gradient comes back through the cast, bf16-rounded
+        table = self.pos_table.to(self._dtype)
+        if self.pos_encoder_type == "triplane":
+            return triplane_encode(table, x_unit, self.triplane_spec)
         consts = self._spec_consts(x_unit.device)
         if self.hash_variant == "xor":
-            return hash_encode_xor(self.pos_table, x_unit, self.hash_spec, consts)
-        # "mixed": the float32 table is cast inside the graph
+            return hash_encode_xor(table, x_unit, self.hash_spec, consts)
         return hash_encode(
-            self.pos_table.to(self._dtype), x_unit, self.hash_spec, consts,
+            table, x_unit, self.hash_spec, consts,
             forward=self.hash_forward, backward=self.hash_backward,
         )
 

@@ -47,13 +47,14 @@ The XOR variant (``hash_encode_xor``, hash_encoder.py:895-1014) indexes
 each corner as the reference does: ``x + y*res + z*res^2`` on dense levels,
 ``(x ^ y*P2 ^ z*P3) mod size`` in uint32 on hashed ones.  Its corners have
 no fixed offsets, so it has one route: the forward gathers the 8 corner
-rows in float32 (no bf16 rounding) and the backward segment-sums the
-(8N, F) corner stream of each level in row-major form
-(``group_segment_sum_t_sorted``, the CUDA kernel
+rows of the table as it is given (float32, or bf16 in the ``mixed`` and
+``bfloat16`` modes) and casts them to float32, and the backward
+segment-sums the float32 (8N, F) corner stream of each level in row-major
+form (``group_segment_sum_t_sorted``, the CUDA kernel
 ``csrc/segment_sum_rows.cu`` on the card): one call for the merged run of
 single-size dense levels, one per group of same-size levels, so two calls
 per backward at the reference's 16 x 2 layout, each writing its block of
-the table gradient in place.
+the table gradient in place, cast to the table's dtype at the end.
 """
 
 from __future__ import annotations
@@ -574,12 +575,13 @@ def xor_corner_rows(spec: HashGridSpec, xyz, consts: _SpecTensors = None):
 
 
 def _xor_gather_combine(table, rows, w, spec: HashGridSpec):
-    """Per level: gather the 8 corner rows (float32) and combine them
-    (hash_encoder.py:962-971).  Returns (N, L * F)."""
+    """Per level: gather the 8 corner rows, cast them to float32 and
+    combine them (hash_encoder.py:962-971).  Returns (N, L * F)."""
     n = rows.shape[-1]
     outs = []
     for lvl in range(spec.levels):
-        feats = table[rows[lvl].reshape(-1).long()].reshape(8, n, spec.feat_dim)
+        feats = table[rows[lvl].reshape(-1).long()].reshape(
+            8, n, spec.feat_dim).float()
         outs.append(torch.einsum("cnf,cn->nf", feats, w[lvl]))
     return torch.cat(outs, dim=1)
 
@@ -652,26 +654,32 @@ class _HashEncodeXor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, xyz, spec, consts):
         rows, w = xor_corner_rows(spec, xyz, consts)
-        ctx.spec = spec
+        ctx.spec, ctx.table_dtype = spec, table.dtype
         ctx.save_for_backward(rows, w)
         return _xor_gather_combine(table, rows, w, spec)
 
     @staticmethod
     def backward(ctx, g):
+        # summed in float32, cast to the table's dtype at the end
+        # (hash_encoder.py:1011)
         rows, w = ctx.saved_tensors
-        return _xor_table_grad(ctx.spec, rows, w, g), None, None, None
+        grad = _xor_table_grad(ctx.spec, rows, w, g)
+        return grad.to(ctx.table_dtype), None, None, None
 
 
 def hash_encode_xor(table, xyz, spec: HashGridSpec,
                     consts: _SpecTensors = None):
     """Encode positions through the hash grid under the reference's XOR
     hash (hash_encoder.py:954-959); arguments and result as
-    :func:`hash_encode`."""
+    :func:`hash_encode` (a float32 or bf16 table, one route)."""
     if table.dim() != 2 or tuple(table.shape) != (spec.total_rows, spec.feat_dim):
         raise ValueError(
             f"hash_encode_xor: want a ({spec.total_rows}, {spec.feat_dim}) "
             f"table, got {tuple(table.shape)}"
         )
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"hash_encode_xor: want a float32 or bf16 table, got "
+                        f"{table.dtype}")
     if consts is None:
         consts = _SpecTensors(spec, xyz.device)
     return _HashEncodeXor.apply(table, xyz, spec, consts)

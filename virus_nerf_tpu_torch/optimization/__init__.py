@@ -3,9 +3,9 @@
 Counterpart of ``virus_nerf_tpu/optimization/`` (reference:
 optimization/particle_swarm_optimization.py,
 particle_swarm_optimization_wrapper.py, metric.py, run_optimization.py):
-the swarm, its search space, the synthetic objectives and the runners.
-The JAX package's PSO plots (matplotlib) and its population evaluator
-(one program training the swarm together) are not ported.
+the swarm, its search space, the synthetic objectives, the runners and
+``parallel_eval`` (the loss weights of a swarm's particles trained
+together).  The JAX package's PSO plots (matplotlib) are not ported.
 """
 
 from virus_nerf_tpu_torch.optimization.metric import SyntheticMetric  # noqa: F401

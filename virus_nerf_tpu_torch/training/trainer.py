@@ -11,24 +11,35 @@ the order of the JAX package's chunk body (trainer.py:484-510).
 Per-step metrics stay on the device and are fetched once per chunk of
 ``evaluation.eval_every_n_steps`` steps, not once per step.
 
-Ported: the VIRUS ("occ") and the NGP ("ngp") grid, the additive hash
-encoder (with its routes ``hash_forward``/``hash_backward``, arguments of
-the trainer) and the XOR one, the ``float32``, ``mixed`` and ``bfloat16``
-compute modes (``model.dtype``; XOR in float32 only), constant-dt and
+Every training option of the JAX trainer is ported: the VIRUS ("occ") and
+the NGP ("ngp") grid, the position encoders (the additive hash with its
+routes ``hash_forward``/``hash_backward``, arguments of the trainer, the
+XOR hash and the tri-plane grid), the ``float32``, ``mixed`` and
+``bfloat16`` compute modes (``model.dtype``), constant-dt and
 exponential-step marching (every scale), the distortion loss, every image
 and pixel strategy ("closest" with its USS statistics in the state),
 real-time simulation (the images of a batch are those taken by the host
-clock's time since the loop started) and ``debug_mode``.  Not yet: the
-triplane encoder and data parallelism.
+clock's time since the loop started) and ``debug_mode``.
+
+Data parallelism: the step and the grid update take a ``torch.distributed``
+process ``group`` (``parallel/data_parallel.py`` builds it), the
+counterpart of the JAX bodies' ``axis_name`` (trainer.py:199-334,
+343-401): each rank draws its share of the batch from its own generator
+(``TrainState.shard_generator``), gradients and metrics are all-reduced,
+the USS statistics fold the batch gathered in rank order, and the VIRUS
+grid's evidence is summed over the ranks.
 
 With a ``test_dataset`` the loop scores the map at the end of every chunk
 (the ``mnn`` column of ``logs``: the NeRF scans' mean NND in zone 3 on
 ``evaluation.num_depth_pts_per_step`` test images drawn with replacement
 from ``numpy.random.default_rng(cfg.seed)``, trainer.py:756-779).  A chunk
 is ``evaluation.eval_every_n_steps`` steps rounded down to a whole number
-of grid-update intervals, as the JAX loop's (trainer.py:564-573); the JAX
-loop runs the NGP grid's warm-up step by step and scores there at the
-multiples of ``eval_every_n_steps`` instead (trainer.py:704-743).
+of grid-update intervals, as the JAX loop's (trainer.py:564-573).  The NGP
+grid's warm-up runs step by step, as the JAX loop's ``_train_stepwise``
+(trainer.py:704-743): up to the first multiple of the update interval at
+or after ``ngp_grid.warmup_steps``, one row a step, scored after the steps
+whose index is a multiple of ``eval_every_n_steps``, ``max_time`` checked
+after every step.
 ``save_logs`` writes the JAX package's ``logs.csv``; ``save_checkpoint`` /
 ``load_checkpoint`` keep the whole ``TrainState`` in one ``.npz``.
 
@@ -78,6 +89,12 @@ from virus_nerf_tpu_torch.models.renderer import render_rays
 from virus_nerf_tpu_torch.ops.common import MAX_SAMPLES
 from virus_nerf_tpu_torch.ops.fused_adam import FusedAdam
 from virus_nerf_tpu_torch.training.loss import LossWeights, compute_loss
+from virus_nerf_tpu_torch.utils.distributed import (
+    all_gather_cat,
+    all_reduce_grads_mean_,
+    reduce_metrics,
+    world_size,
+)
 
 logger = logging.getLogger("virus_nerf_tpu_torch")
 
@@ -101,7 +118,11 @@ LOG_COLUMNS = {"time": "time", "step": "step", "loss": "loss",
 class TrainState:
     """Everything a step changes: parameters (in ``model``), Adam moments
     and step count (in ``optimizer``), the grid, the random stream, the
-    step and, for the "closest" pixel strategy, the USS statistics."""
+    step and, for the "closest" pixel strategy, the USS statistics.  Under
+    data parallelism over several ranks, ``shard_generator`` draws this
+    rank's share of the batches (``generator`` then draws only what every
+    rank draws alike: the NGP grid's cells); a checkpoint does not keep
+    it."""
 
     model: NGPModel
     optimizer: FusedAdam
@@ -109,6 +130,7 @@ class TrainState:
     generator: torch.Generator
     step: int = 0
     uss_stats: Optional[USSStats] = None
+    shard_generator: Optional[torch.Generator] = None
 
 
 def _full_device(device) -> torch.device:
@@ -121,18 +143,17 @@ def _full_device(device) -> torch.device:
 
 
 def _check_supported(cfg: Config) -> None:
-    unsupported = {
+    """Every option of the JAX trainer is ported: a value outside these
+    is unknown (ValueError)."""
+    known = {
         "model.grid_type": (cfg.model.grid_type, ("occ", "ngp")),
-        "model.encoder_type": (cfg.model.encoder_type, "hash"),
+        "model.encoder_type": (cfg.model.encoder_type, ("hash", "triplane")),
         "model.hash_variant": (cfg.model.hash_variant, ("additive", "xor")),
         "model.dtype": (cfg.model.dtype, ("float32", "mixed", "bfloat16")),
     }
-    for name, (have, want) in unsupported.items():
-        if have not in (want if isinstance(want, tuple) else (want,)):
-            raise NotImplementedError(
-                f"virus_nerf_tpu_torch Trainer: {name}={have!r} is not "
-                f"ported (only {want!r})"
-            )
+    for name, (have, want) in known.items():
+        if have not in want:
+            raise ValueError(f"Trainer: unknown {name}={have!r} (have {want!r})")
 
 
 class Trainer:
@@ -172,7 +193,7 @@ class Trainer:
 
         m = cfg.model
         self.model_kwargs = dict(
-            scale=m.scale, levels=m.hash_levels,
+            scale=m.scale, pos_encoder_type=m.encoder_type, levels=m.hash_levels,
             feature_per_level=m.hash_features_per_level, log2_T=m.hash_log2_T,
             base_res=m.hash_base_res, max_res=m.hash_max_res,
             xyz_net_width=m.xyz_net_width, xyz_net_depth=m.xyz_net_depth,
@@ -218,10 +239,9 @@ class Trainer:
         ).index_fill_(0, train_dataset.uss_mask_idx.long(), True)
         # occupancy update batches and the sensor cascade RGBD -> ToF/USS
         # (reference: modules/occupancy_grid.py:107-180)
-        self.b_ray = max(1, int(og.batch_size * og.batch_ratio_ray_update))
-        self.b_nerf = max(1, og.batch_size - int(
-            og.batch_size * og.batch_ratio_ray_update
-        ))
+        self._b_ray_all = int(og.batch_size * og.batch_ratio_ray_update)
+        self._b_nerf_all = og.batch_size - self._b_ray_all
+        self.b_ray, self.b_nerf = self.occ_batch_sizes(1)
         sensors = t.sensors
         if "RGBD" in sensors:
             self.ray_sel, self.nerf_sel = ("random", "RGBD"), ("random", "RGBD")
@@ -248,6 +268,37 @@ class Trainer:
             dense = self.cfg.exp_step_factor != 0.0
             budget = 0 if dense else t.batch_size * min(32, t.max_samples_per_ray)
         return budget if budget > 0 else None
+
+    def occ_batch_sizes(self, world: int):
+        """The VIRUS grid update's two batch sizes on each of ``world``
+        ranks (trainer.py:352-356)."""
+        return (max(1, self._b_ray_all // world),
+                max(1, self._b_nerf_all // world))
+
+    def _shard_budget(self, world: int) -> Optional[int]:
+        """Each rank's share of the sample budget (trainer.py:240-243)."""
+        if self.sample_budget is None or world == 1:
+            return self.sample_budget
+        return max(1, self.sample_budget // world)
+
+    def _shard_batch(self, world: int) -> int:
+        """Each rank's share of the batch (trainer.py:216-217)."""
+        b = self.cfg.training.batch_size
+        if b % world:
+            raise ValueError(f"training.batch_size {b} is not a multiple of "
+                             f"the {world} ranks")
+        return b // world
+
+    @staticmethod
+    def _draws(state: TrainState, group) -> torch.Generator:
+        """The generator of this rank's draws: the state's own on one rank,
+        its ``shard_generator`` over several."""
+        if world_size(group) == 1:
+            return state.generator
+        if state.shard_generator is None:
+            raise ValueError("a data-parallel step needs the state's "
+                             "shard_generator (parallel.shard_state)")
+        return state.shard_generator
 
     # ------------------------------------------------------------------ init
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -280,27 +331,33 @@ class Trainer:
         return elapse_time if self.cfg.training.real_time_simulation else None
 
     # ------------------------------------------------------------ train step
-    def train_step(self, state: TrainState,
-                   elapse_time: Optional[float] = None) -> Dict[str, torch.Tensor]:
+    def train_step(self, state: TrainState, elapse_time: Optional[float] = None,
+                   group=None) -> Dict[str, torch.Tensor]:
         """Draw a batch and the march jitter, then one step.  Under
         ``real_time_simulation`` the batch comes from the images with
-        ``times <= elapse_time`` (seconds since training started)."""
+        ``times <= elapse_time`` (seconds since training started).  Under
+        ``group`` this rank draws its share of the batch."""
         t = self.cfg.training
+        g = self._draws(state, group)
+        b = self._shard_batch(world_size(group))
         batch = sample_batch(
-            self.train_dataset, state.generator, t.batch_size,
+            self.train_dataset, g, b,
             t.sampling_strategy, elapse_time=self._elapse(elapse_time),
             uss_stats_pix=(state.uss_stats.min_pix if self.uses_closest
                            else None),
         )
-        noise = torch.rand((t.batch_size,), generator=state.generator,
-                           device=self.device)
-        return self.train_step_on(state, batch, noise)
+        noise = torch.rand((b,), generator=g, device=self.device)
+        return self.train_step_on(state, batch, noise, group)
 
-    def train_step_on(self, state: TrainState, batch: Batch,
-                      noise) -> Dict[str, torch.Tensor]:
+    def train_step_on(self, state: TrainState, batch: Batch, noise,
+                      group=None) -> Dict[str, torch.Tensor]:
         """One step on a given batch and march jitter; returns the step's
         metrics as 0-dim device tensors.  With "closest" sampling it folds
-        the batch's rendered depths into the USS statistics."""
+        the batch's rendered depths into the USS statistics.  Under
+        ``group`` the batch is this rank's share: the gradients are
+        averaged over the ranks before Adam, the metrics summed (sample
+        counts) or averaged, and the statistics fold the batch gathered in
+        rank order (trainer.py:277-322)."""
         t = self.cfg.training
         results = render_rays(
             state.model, state.grid.occ_bool, batch.rays_o, batch.rays_d,
@@ -308,7 +365,7 @@ class Trainer:
             max_samples=t.max_samples_per_ray,
             n_candidates=t.march_candidates,
             march_resolution=t.march_resolution,
-            sample_budget=self.sample_budget,
+            sample_budget=self._shard_budget(world_size(group)),
             need_ws=self.loss_weights.distortion > 0.0,
         )
         loss, loss_dict = compute_loss(
@@ -316,6 +373,7 @@ class Trainer:
         )
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads_mean_(state.model.parameters(), group)
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
@@ -329,24 +387,29 @@ class Trainer:
                 "vr_samples": results["vr_samples"],
                 "overflow": results["overflow"],
             }
+            metrics = reduce_metrics(metrics, group)
             if self.uses_closest:
                 state.uss_stats = uss_stats_update(
-                    state.uss_stats, batch.img_idxs, batch.pix_idxs,
-                    results["depth"].detach(), self.uss_mask,
+                    state.uss_stats, all_gather_cat(batch.img_idxs, group),
+                    all_gather_cat(batch.pix_idxs, group),
+                    all_gather_cat(results["depth"].detach(), group),
+                    self.uss_mask,
                 )
         return metrics
 
     # ------------------------------------------------------------ grid update
-    def grid_update(self, state: TrainState,
-                    elapse_time: Optional[float] = None) -> None:
+    def grid_update(self, state: TrainState, elapse_time: Optional[float] = None,
+                    group=None) -> None:
         """Draw, then one grid update.  VIRUS grid: the two update batches
         (under ``real_time_simulation`` from the images taken by
-        ``elapse_time``) and the position noise; NGP grid: the cells and
-        their jitter, every cell while ``step < ngp_grid.warmup_steps``."""
-        ds, g = self.train_dataset, state.generator
+        ``elapse_time``) and the position noise, under ``group`` this
+        rank's share of them; NGP grid: the cells and their jitter, every
+        cell while ``step < ngp_grid.warmup_steps``, drawn alike on every
+        rank from the state's own generator."""
+        ds = self.train_dataset
         if self.cfg.model.grid_type == "ngp":
             draws = ngp_cell_draws(
-                state.grid, g,
+                state.grid, state.generator,
                 warmup=state.step < self.cfg.ngp_grid.warmup_steps,
                 density_threshold=NGP_DENSITY_THRESHOLD,
                 grid_size=state.model.grid_size,
@@ -354,13 +417,15 @@ class Trainer:
             self.ngp_update_on(state, draws)
             return
         et = self._elapse(elapse_time)
-        ray_b = sample_batch(ds, g, self.b_ray,
+        g = self._draws(state, group)
+        b_ray, b_nerf = self.occ_batch_sizes(world_size(group))
+        ray_b = sample_batch(ds, g, b_ray,
                              {"imgs": "all", "pixs": self.ray_sel[0]}, et)
-        nerf_b = sample_batch(ds, g, self.b_nerf,
+        nerf_b = sample_batch(ds, g, b_nerf,
                               {"imgs": "all", "pixs": self.nerf_sel[0]}, et)
-        noise = torch.rand((self.b_nerf, self.occ_hp.M, 3), generator=g,
+        noise = torch.rand((b_nerf, self.occ_hp.M, 3), generator=g,
                            device=self.device) * 2.0 - 1.0
-        self.grid_update_on(state, ray_b, nerf_b, noise)
+        self.grid_update_on(state, ray_b, nerf_b, noise, group)
 
     def ngp_update_on(self, state: TrainState, draws) -> None:
         """One NGP grid update at given draws (``ngp_cell_draws``)
@@ -373,8 +438,10 @@ class Trainer:
             )
 
     def grid_update_on(self, state: TrainState, ray_b: Batch, nerf_b: Batch,
-                       nerf_noise) -> None:
-        """One grid update on given batches and NeRF position noise."""
+                       nerf_noise, group=None) -> None:
+        """One grid update on given batches and NeRF position noise (under
+        ``group``: this rank's shard of them, the evidence summed over the
+        ranks)."""
         with torch.no_grad():
             state.grid = occ_grid_update(
                 state.grid, self.occ_hp, state.model.density,
@@ -382,41 +449,94 @@ class Trainer:
                            "meas": ray_b.depths[self.ray_sel[1]]},
                 nerf_batch={"rays_o": nerf_b.rays_o, "rays_d": nerf_b.rays_d,
                             "meas": nerf_b.depths[self.nerf_sel[1]]},
-                nerf_noise=nerf_noise,
+                nerf_noise=nerf_noise, group=group,
             )
+
+    def run_steps(self, state: TrainState, n_steps: int, elapse_time=None,
+                  group=None):
+        """``n_steps`` steps, the grid update before every step whose index
+        is a multiple of the update interval (the JAX chunk body,
+        trainer.py:475-511).  ``elapse_time``: None, seconds, or a
+        function that reads them before each update and step.  Returns
+        ``[(step, metrics), ...]``, the metrics on the device."""
+        clock = elapse_time if callable(elapse_time) else (lambda: elapse_time)
+        out = []
+        for _ in range(n_steps):
+            if state.step % self.grid_update_interval == 0:
+                self.grid_update(state, clock(), group)
+            out.append((state.step, self.train_step(state, clock(), group)))
+        return out
 
     # ------------------------------------------------------------------ train
     def train(self, state: Optional[TrainState] = None) -> TrainState:
-        """Run until ``training.max_steps`` or ``training.max_time``
-        (checked once per chunk); grid update every interval, before the
-        step.  ``real_time_simulation`` reads the host clock before each
-        step and grid update; ``debug_mode`` checks the state after each
-        chunk (and may sync the host only there)."""
+        """Run until ``training.max_steps`` or ``training.max_time``; grid
+        update every interval, before the step.  The NGP grid's warm-up
+        runs step by step (see the module doc), the rest in chunks, with
+        ``max_time`` checked after each.  ``real_time_simulation`` reads
+        the host clock before each step and grid update; ``debug_mode``
+        checks the state after each logged step or chunk (and may sync the
+        host only there)."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
+        tic = time.time()
+        if cfg.model.grid_type == "ngp":
+            # trainer.py:536-547: step by step up to the first interval
+            # multiple at or after the warm-up's end
+            interval = self.grid_update_interval
+            w = cfg.ngp_grid.warmup_steps
+            switch = min(cfg.training.max_steps, -(-w // interval) * interval)
+            if not self._train_stepwise(state, tic, switch):
+                return state
+        self._train_chunks(state, tic)
+        return state
+
+    def _over_time(self, tic: float, step: int) -> bool:
+        if time.time() - tic > self.cfg.training.max_time:
+            logger.info("max_time reached at step %d", step)
+            return True
+        return False
+
+    def _train_stepwise(self, state: TrainState, tic: float, until: int) -> bool:
+        """One logged row a step up to step ``until`` (trainer.py:704-743):
+        the map scored after each step whose index is a multiple of
+        ``eval_every_n_steps``, ``max_time`` checked after every step.
+        Returns False when ``max_time`` ended the run."""
+        cfg = self.cfg
+        clock = lambda: time.time() - tic  # noqa: E731
+        while state.step < until:
+            pending = self.run_steps(state, 1, clock)
+            scored = pending[0][0] % cfg.evaluation.eval_every_n_steps == 0
+            mnn = (self._intermediate_eval(state, clock()) if scored
+                   else float("nan"))
+            last = self._log_chunk(pending, tic, mnn, quiet=not scored)
+            if cfg.training.debug_mode:
+                self._debug_check_state(state, last, state.step)
+            if self._over_time(tic, state.step):
+                return False
+        return True
+
+    def _train_chunks(self, state: TrainState, tic: float) -> None:
+        """Chunks of ``eval_every_n_steps`` steps rounded down to whole
+        grid-update intervals when the entry step is a multiple of one
+        (trainer.py:556-656), the map scored after each."""
+        cfg = self.cfg
+        max_steps = cfg.training.max_steps
         chunk = max(1, min(cfg.evaluation.eval_every_n_steps,
-                           cfg.training.max_steps - state.step))
+                           max_steps - state.step))
         interval = self.grid_update_interval
         if state.step % interval == 0 and chunk >= interval:
             chunk -= chunk % interval
-        tic = time.time()
-        pending = []
-        while state.step < cfg.training.max_steps:
-            if state.step % self.grid_update_interval == 0:
-                self.grid_update(state, time.time() - tic)
-            pending.append((state.step,
-                            self.train_step(state, time.time() - tic)))
-            if len(pending) == chunk or state.step == cfg.training.max_steps:
-                mnn = self._intermediate_eval(state, time.time() - tic)
-                last = self._log_chunk(pending, tic, mnn)
-                pending = []
-                if cfg.training.debug_mode:
-                    self._debug_check_state(state, last, state.step)
-                if time.time() - tic > cfg.training.max_time:
-                    logger.info("max_time reached at step %d", state.step)
-                    break
-        return state
+        clock = lambda: time.time() - tic  # noqa: E731
+        while state.step < max_steps:
+            pending = self.run_steps(state, min(chunk, max_steps - state.step),
+                                     clock)
+            mnn = self._intermediate_eval(state, clock())
+            last = self._log_chunk(pending, tic, mnn)
+            if cfg.training.debug_mode:
+                self._debug_check_state(state, last, state.step)
+            if self._over_time(tic, state.step):
+                break
 
     # ------------------------------------------------------------ debug mode
     def _debug_check_state(self, state: TrainState, m: Dict[str, float],
@@ -485,11 +605,11 @@ class Trainer:
             state.model, state.grid.occ_bool, sel, sensors=("NeRF",))
         return float(metrics["NeRF"]["nn_mean"]["zone3"])
 
-    def _log_chunk(self, pending, tic: float,
-                   mnn: float = float("nan")) -> Dict[str, float]:
+    def _log_chunk(self, pending, tic: float, mnn: float = float("nan"),
+                   quiet: bool = False) -> Dict[str, float]:
         """One device -> host transfer for all metrics of the chunk; one
         row a step, ``mnn`` on the chunk's last row (trainer.py:781-809);
-        returns the last step's metrics."""
+        returns the last step's metrics (logged unless ``quiet``)."""
         keys = [k for k in METRIC_KEYS if k in pending[0][1]]
         vals = torch.stack([
             torch.stack([m[k].float() for k in keys]) for _, m in pending
@@ -502,11 +622,12 @@ class Trainer:
             for k, v in zip(keys, row):
                 self.logs.setdefault(k, []).append(float(v))
         last = dict(zip(keys, vals[-1]))
-        logger.info(
-            "step %5d | loss %.4f | psnr %.2f | mnn %.3f | rm %d | vr %d",
-            pending[-1][0], last["loss"], last["psnr"], mnn,
-            int(last["rm_samples"]), int(last["vr_samples"]),
-        )
+        if not quiet:
+            logger.info(
+                "step %5d | loss %.4f | psnr %.2f | mnn %.3f | rm %d | vr %d",
+                pending[-1][0], last["loss"], last["psnr"], mnn,
+                int(last["rm_samples"]), int(last["vr_samples"]),
+            )
         return {k: float(v) for k, v in last.items()}
 
     def save_logs(self, path: str) -> None:
