@@ -23,7 +23,8 @@ Phases, each printed as it finishes; any failure exits non-zero:
    synthetic scene 16 x 160x120, 4096 rays, 8 x F=4 additive hash levels of
    2^19 rows, 128^3 VIRUS grid updated every 8 steps, S=128, budget
    4096*28) for 48 steps from a seeded random init: finite, falling loss;
-   B1 and B2 launched on the path, B2 once a step for all leaves;
+   B1 and B2 launched on the path, B2 once a step for all leaves; CUDA
+   kernel launches a step (host profile of 8 more steps);
 4. B1 against its plain version, and timed, on the two streams of the hash
    backward at the positions of the bench path's last step;
 5. fused Adam (B2) against its plain version at 2^21 elements and at both
@@ -60,17 +61,18 @@ Phases, each printed as it finishes; any failure exits non-zero:
 12. the scale-1.0 path: the bench configuration at ``model.scale = 1.0``
     (two cascades, exponential stepping with exp_step_factor 1/256, the
     one-row VIRUS grid marched past its end as the JAX package does) on 16
-    of 24 images, 48 steps: finite, falling loss; B1, B2 and the lattice
-    kernel (``csrc/march_lattice.cu``) launched, B2 and the lattice once a
-    step; ms/step and rays/s over steps 16-48, launches a step, peak
-    memory; B1 at the keys of its last step; the lattice kernel bit-exact
-    against its plain loop at 4096 x 1024 on the path's own rays, and
-    timed; then ``Evaluator.evaluate`` on the 8 held-out images;
+    of 24 images, 48 steps: finite, falling loss; B1, B2 and the fused
+    march launched, B2 and the march once a step; ms/step and rays/s over
+    steps 16-48, launches a step, peak memory; B1 at the keys of its last
+    step; CUDA kernel launches a step; the standalone lattice kernel of
+    ``csrc/march.cu`` (off every path) bit-exact against its plain loop at
+    4096 x 1024 on the path's own rays, and timed; then
+    ``Evaluator.evaluate`` on the 8 held-out images;
 13. the NGP path: the same at scale 1.0 with ``model.grid_type="ngp"`` (a
     2 x 128^3 grid, a warm-up update at step 0 and a steady one at step
     16), the distortion loss, "closest" pixels with the USS statistics and
-    real-time simulation, 32 steps; B1, B2 and the lattice launched, B2 and
-    the lattice once a step;
+    real-time simulation, 32 steps; B1, B2 and the march launched, B2 and
+    the march once a step; CUDA kernel launches a step;
 14. one small-config step on the card against the CPU at scale 1.0, with
     the NGP grid (its warm-up update too) and with the distortion loss;
 15. the ETHZ run: the port's fixture writer at its defaults (a recorded
@@ -98,14 +100,14 @@ Phases, each printed as it finishes; any failure exits non-zero:
     exponential stepping, the dense automatic budget, the one-row VIRUS
     grid marched past its end) at the default config's full width, cut to
     48 steps with the clock's limit lifted: the checks and prints of 15,
-    B1 2, B2 1 and the lattice 1 launch a step, B1 at the run's last keys;
+    B1 2, B2 1 and the march 1 launch a step, B1 at the run's last keys;
 17. PSO: ``python -m virus_nerf_tpu_torch.run_optimization``'s ``main`` over
     the RH2 fixture at the same width, 24 steps a particle and the
     evaluation cut to one colour image and 4 depth scans, three particles,
     then a second call on the same directory that resumes at t = 3 and
     writes the fourth history row, then a ``--worker-id`` call on another
     directory whose lease is read from the state file during its
-    evaluation: every score finite, B1 2, B2 1 and the lattice 1 launch a
+    evaluation: every score finite, B1 2, B2 1 and the march 1 launch a
     step; the seconds of each particle;
 18. the tri-plane path: the bench configuration with
     ``model.encoder_type="triplane"`` (8 x 4 planes at max_res 1024,
@@ -121,19 +123,32 @@ Phases, each printed as it finishes; any failure exits non-zero:
     (grid updates at steps 0 and 8) through ``make_dp_train_chunk``, bit
     for bit the plain trainer's (both in PyTorch's deterministic mode), B1
     against its plain version at the last step's keys, and 8 steps of the
-    scale-1.0 configuration (the lattice once a step, checked bit for bit);
+    scale-1.0 configuration (the march once a step, checked bit for bit on
+    the path's rays and grid);
 20. the population evaluators (deterministic mode): ``parallel``'s (a
     Trainer a particle over ``run_optimization``'s search space, the bench
     configuration cut to 24 steps on 16 of 24 images, each particle scored
     on the 8 held-out images) for 2 calls of 3 particles, and
     ``optimization.parallel_eval``'s (the loss weights) for 4 particles x
     32 steps: every score finite and each one's particle 0 equal to its
-    serial run; B1 2 and B2 1 launch a step.
+    serial run; B1 2 and B2 1 launch a step;
+21. the fused march (``csrc/march.cu``, ``march_select``) bit for bit
+    against its plain version (``march_select_plain``: the (N, K) lattice,
+    the probe and the selection as PyTorch ops) on the rays and trained
+    grids of the paths: the bench (constant step, 4096 rays, K = 1024, S =
+    128 and the default configuration's 256), a full grid (S = 256), scale
+    1.0 (exponential step, the one-row VIRUS grid), the NGP grid's two
+    rows, and the evaluator's chunk (8192 rays, S = 512, no jitter); each
+    timed in turns with the plain version (events, and profiler device
+    time: the kernel's, the plain chain's kernels and their launches)
+    beside its bound.
 
-The line before the last is the card's name and power limit (nvidia-smi);
-before it, one JSON line with the kernels' results.  The last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
-prints no result.
+On every path the renderer's marches on the card are counted, and each
+must have launched ``march_select`` once (no path launches the
+standalone lattice).  The line before the last is the card's name and
+power limit (nvidia-smi); before it, one JSON line with the kernels'
+results.  The last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -198,20 +213,24 @@ def device_ms(fn, part: str, iters: int = 10, per_call: int = 1):
     kernel's own time, without the host's time between launches, which
     CUDA events around a short kernel also count.  Taken per recorded
     launch, as the profiler may drop a launch's record, times the
-    ``per_call`` launches of a call; NaN if it kept none."""
+    ``per_call`` launches of a call.  The first session after a long one
+    (a profiled training run) can come back without the kernel's records,
+    so a session that kept none is repeated, up to three; NaN if none
+    kept any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if part in e.key]
-    n = sum(e.count for e in ev)
-    if not n:
-        return float("nan")
-    return sum(e.self_device_time_total for e in ev) / 1e3 / n * per_call
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if part in e.key]
+        n = sum(e.count for e in ev)
+        if n:
+            return sum(e.self_device_time_total for e in ev) / 1e3 / n * per_call
+    return float("nan")
 
 
 def step_device_ms(run, n_steps: int, top: int = 5):
@@ -323,7 +342,7 @@ def check_out_of_range(dev, layout):
 
 def ptxas_report(lib_path, sources=("segment_sum.cu", "segment_sum_rows.cu",
                                     "segment_sum_factors.cu", "fused_adam.cu",
-                                    "widen_slabs.cu", "march_lattice.cu")):
+                                    "widen_slabs.cu", "march.cu")):
     """Registers and spills of every kernel of ``sources``, from the
     ``-Xptxas -v`` report of the build."""
     from virus_nerf_tpu_torch.ops import _build
@@ -719,8 +738,8 @@ def reference_step(dev, hash_variant: str, dtype: str = "float32",
     the CPU (plain versions) from the same weights and draws.  The 16 x 2
     layouts (XOR, and the additive routes and compute modes) take levels of
     up to 2^17 rows, so the additive hashed group has bf16 slabs.  At
-    ``scale`` 1.0 the march steps exponentially over two cascades (the
-    lattice kernel on the card); the NGP grid's update is its warm-up.
+    ``scale`` 1.0 the march steps exponentially over two cascades; the NGP
+    grid's update is its warm-up.
     Returns the card's model and the positions its training step fed it."""
     from virus_nerf_tpu_torch.configs.config import Config
     from virus_nerf_tpu_torch.data.dataset import Batch, sample_batch
@@ -1015,10 +1034,11 @@ def run_path(name, trainer, n_steps, first_steady, wrappers, card):
         f"{trainer.cfg.training.batch_size / step_s:.0f} rays/s on {card}")
     log(f"{name}: kernel launches {launches}, a step {per_step}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if launches["march_lattice"] != n_steps:
-        fail(f"{name}: {launches['march_lattice']} lattice launches over "
-             f"{n_steps} steps, want one a march")
-    check_launched(name, launches, ("segment_sum", "fused_adam", "march_lattice"))
+    if launches["march_select"] != n_steps:
+        fail(f"{name}: {launches['march_select']} march launches over "
+             f"{n_steps} steps, want one a step")
+    check_marches(name, launches)
+    check_launched(name, launches, ("segment_sum", "fused_adam"))
     check_adam_per_step(name, launches, n_steps)
     return state, launches, seen["xyz"], wall
 
@@ -1064,6 +1084,163 @@ def check_lattice(dev, dataset, cfg):
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
             "bound_by": b_by}
+
+
+# ------------------------------------------------ the fused march (L1)
+def count_marches():
+    """Count the marches on the card: the renderer's ``march_rays_train``
+    wrapped in a counter (``.launches``, read and reset with the kernel
+    counts) of its calls on CUDA tensors.  Every path is held to one
+    ``march_select`` launch a march by it."""
+    from virus_nerf_tpu_torch.models import renderer
+
+    march = renderer.march_rays_train
+
+    def counted(rays_o, *args, **kwargs):
+        if rays_o.is_cuda:
+            counted.launches += 1
+        return march(rays_o, *args, **kwargs)
+
+    counted.launches = 0
+    renderer.march_rays_train = counted
+    return counted
+
+
+def check_marches(name, launches):
+    """One fused-march launch a march on the card, at least one march, and
+    no launch of the standalone lattice."""
+    if (launches["march_select"] != launches["marches"]
+            or launches["marches"] <= 0 or launches["march_lattice"]):
+        fail(f"{name}: {launches['march_select']} march_select launches over "
+             f"{launches['marches']} marches, {launches['march_lattice']} "
+             f"standalone lattice launches; want one fused launch a march")
+
+
+def launches_per_step(trainer, state, n_steps: int = 8):
+    """CUDA kernel launches a step (grid updates included), from the host
+    side of ``torch.profiler`` over ``n_steps`` steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.run_steps(state, n_steps)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "LaunchKernel" in e.key) / n_steps
+
+
+def march_case(name, cfg, dataset, grid, dev, n=None, S=None,
+               zero_noise=False, full=False):
+    """The inputs of one march at a path's shapes: ``n`` rays of the
+    path's images (its batch size; the bench's pixel shares, as "closest"
+    pixels need the trainer's statistics), their cube hits, noise (zeros,
+    as the evaluator renders) and the path's trained grid (or a full one:
+    every cell occupied).  Returns (name, args, keyword arguments) of
+    ``march_select``."""
+    from virus_nerf_tpu_torch.data.dataset import sample_batch
+    from virus_nerf_tpu_torch.ops.intersection import ray_aabb_intersect
+
+    t = cfg.training
+    n = n or t.batch_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    b = sample_batch(dataset, gen, n, bench_config().training.sampling_strategy)
+    t1, t2 = ray_aabb_intersect(b.rays_o, b.rays_d, cfg.model.scale).t().contiguous()
+    noise = (torch.zeros(n, device=dev) if zero_noise
+             else torch.rand(n, generator=gen, device=dev))
+    grid = torch.ones_like(grid) if full else grid.clone()
+    kw = dict(cascades=cfg.cascades, grid_size=cfg.model.grid_size,
+              scale=cfg.model.scale, exp_step_factor=cfg.exp_step_factor,
+              max_samples=S or t.max_samples_per_ray,
+              n_candidates=t.march_candidates,
+              march_resolution=t.march_resolution)
+    return name, (b.rays_o.contiguous(), b.rays_d.contiguous(), t1, t2, noise,
+                  grid), kw
+
+
+def device_total_ms(fn, iters: int = 5):
+    """Device ms per call of every kernel ``fn`` launches, and the launches
+    a call, from ``torch.profiler`` over ``iters`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / iters,
+            sum(e.count for e in ev) / iters)
+
+
+def probed_candidates(args, kw):
+    """The in-range candidates of a march: those the kernel probes."""
+    from virus_nerf_tpu_torch.ops.ray_march import (
+        _constant_dt,
+        march_lattice_plain,
+    )
+
+    _, _, t1, t2, noise, _ = args
+    K = kw["n_candidates"]
+    if kw["exp_step_factor"] == 0.0:
+        k = torch.arange(K, dtype=torch.float32, device=t1.device)
+        dt0 = _constant_dt(kw["grid_size"], kw["scale"], kw["march_resolution"])
+        ts = torch.addcmul(t1[:, None], noise[:, None] + k[None, :],
+                           torch.tensor(dt0, device=t1.device))
+    else:
+        ts, _ = march_lattice_plain(t1, noise, kw["exp_step_factor"],
+                                    kw["grid_size"], kw["scale"], K,
+                                    kw["march_resolution"])
+    return int(((ts >= 0.0) & (ts < t2[:, None]) & (t1[:, None] >= 0.0)).sum())
+
+
+def check_march(name, args, kw):
+    """``march_select`` against ``march_select_plain`` bit for bit on the
+    card, both timed in turns (CUDA events; the kernel's profiler device
+    time, and the plain chain's: every kernel it launches), beside the
+    bound.  No one PyTorch call computes the march (library_ms None)."""
+    from virus_nerf_tpu_torch.ops.ray_march import march_select, march_select_plain
+
+    got = march_select(*args, **kw)
+    want = march_select_plain(*args, **kw)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a.view(torch.uint8) if a.dtype == torch.bool
+                         else a.view(torch.int32),
+                         b.view(torch.uint8) if b.dtype == torch.bool
+                         else b.view(torch.int32)) for a, b in zip(got, want))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    ms, plain_ms = time_turns([lambda: march_select(*args, **kw),
+                               lambda: march_select_plain(*args, **kw)], iters=5)
+    dev_ms = device_ms(lambda: march_select(*args, **kw), "march_select_kernel")
+    plain_dev_ms, plain_launches = device_total_ms(
+        lambda: march_select_plain(*args, **kw))
+    o, _, _, _, _, grid = args
+    n, S = o.shape[0], kw["max_samples"]
+    probed = probed_candidates(args, kw)
+    # inputs read once (rays 24 B, t1, t2, noise 12 B a ray), the grid read
+    # once, ts, deltas, valid and n_kept written once; about 64 operations
+    # a probed candidate: the positions, the two mips, the three cells and
+    # the index (~60), and the lattice step (4)
+    b_ms, b_by = bound_ms(36.0 * n + grid.numel() + 9.0 * n * S + 4.0 * n,
+                          64.0 * probed)
+    kept = int(got[3].sum())
+    over = int((got[3] == S).sum())
+    log(f"march_select [{name}]: n={n} S={S} K={kw['n_candidates']} "
+        f"esf={kw['exp_step_factor']:g} grid {tuple(grid.shape)} occupied "
+        f"{float(grid.float().mean()):.4f}; {probed} candidates in range, "
+        f"{kept} kept, {over} rays at S; bit-exact {ok} (max_abs_err "
+        f"{err:.3e}); kernel {ms:.4f} ms (device {dev_ms:.4f}) plain "
+        f"{plain_ms:.4f} ms (device {plain_dev_ms:.4f}, {plain_launches:.0f} "
+        f"launches) bound {b_ms:.4f} ms ({b_by}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"march_select [{name}] disagrees with its plain version")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
+            "plain_launches": plain_launches, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "n": n, "S": S,
+            "K": kw["n_candidates"], "probed": probed, "kept": kept,
+            "rays_at_S": over}
 
 
 def evaluate_scale1(trainer, state, test_ds, scene, img_wh, card):
@@ -1277,7 +1454,8 @@ def ethz_run(dev, wrappers, card, tmp):
     trainer, state = report_run("ETHZ run", r, card)
     cfg, launches, metrics = trainer.cfg, r["launches"], r["metrics"]
     idle = [k for k in ("segment_sum_rows", "segment_sum_factors",
-                        "widen_slabs", "march_lattice") if launches[k]]
+                        "widen_slabs") if launches[k]]
+    check_marches("ETHZ run", launches)
     if idle or state.model.pos_table.shape != (5_710_032, 2):
         fail(f"ETHZ run: the default path launched {idle} or has table "
              f"{tuple(state.model.pos_table.shape)}")
@@ -1349,10 +1527,11 @@ def rh2_run(dev, wrappers, card, tmp):
             or trainer.sample_budget is not None):
         fail(f"RH2 run: cascades {cfg.cascades}, esf {cfg.exp_step_factor}, "
              f"budget {trainer.sample_budget}: not the scale-1.0 dense path")
-    if (per_step["segment_sum"] != 2 or per_step["march_lattice"] != 1
+    if (per_step["segment_sum"] != 2 or per_step["march_select"] != 1
             or state.model.pos_table.shape != (5_710_032, 2)):
         fail(f"RH2 run: training launches a step {per_step}, want B1 2, "
-             f"B2 1, the lattice 1; table {tuple(state.model.pos_table.shape)}")
+             f"B2 1, the march 1; table {tuple(state.model.pos_table.shape)}")
+    check_marches("RH2 run", launches)
     idle = [k for k in ("segment_sum_rows", "segment_sum_factors",
                         "widen_slabs") if launches[k]]
     if idle:
@@ -1456,9 +1635,10 @@ def pso_run(root, wrappers, card, tmp):
             != [("w0", 0)] or worker_state["leases"] != []
             or worker_state["state"]["t"] != 1 or len(worker_rows) != 2):
         fail(f"PSO run: worker lease {leases}, state {worker_state}")
-    if (per_step.get("segment_sum") != 2 or per_step.get("march_lattice") != 1):
+    if (per_step.get("segment_sum") != 2 or per_step.get("march_select") != 1):
         fail(f"PSO run: training launches a step {per_step}, want B1 2, the "
-             f"lattice 1")
+             f"march 1")
+    check_marches("PSO run", launches)
     check_adam_per_step("PSO run", in_training, steps)
     return launches, in_training, steps
 
@@ -1537,9 +1717,11 @@ def triplane_run(dev, wrappers, card):
     if tuple(state.model.pos_table.shape) != (3 * 1024**2 * 4,):
         fail(f"triplane path: planes {tuple(state.model.pos_table.shape)}")
     check_adam_per_step("triplane path", launches, 48)
-    others = {k: v for k, v in launches.items() if k != "fused_adam" and v}
+    others = {k: v for k, v in launches.items()
+              if k not in ("fused_adam", "march_select", "marches") and v}
     if others:
-        fail(f"triplane path: launched {others}, want B2 alone")
+        fail(f"triplane path: launched {others}, want B2 and the march alone")
+    check_marches("triplane path", launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     dev_ms, top = step_device_ms(lambda: trainer.run_steps(state, 8), 8)
     log(f"triplane path: device time {dev_ms:.3f} ms/step over steps 48-56 "
@@ -1609,12 +1791,12 @@ def dp_run(dev, wrappers, card, tmp):
     of 8, grid updates at steps 0 and 8) through ``make_dp_train_chunk``
     on a group of one rank, bit for bit the plain trainer's 16 steps from
     the same seed (both in PyTorch's deterministic mode); then 8 steps of
-    the scale-1.0 configuration (the lattice kernel once a step).  With
+    the scale-1.0 configuration (the fused march once a step).  With
     more cards, the bench configuration's 16 steps on every rank and the
     replicas checked bit-identical (then the one-card checks on card 0).
     Returns (launches of the bench run,
-    of the scale-1.0 run, B1 at the DP path's last step, the lattice
-    check, step times)."""
+    of the scale-1.0 run, B1 at the DP path's last step, the fused march
+    on its rays and grid, step times)."""
     import torch.distributed as dist
 
     from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -1685,6 +1867,7 @@ def dp_run(dev, wrappers, card, tmp):
                      f"trainer in {apart}")
             check_launched("DP path", launches, ("segment_sum", "fused_adam"))
             check_adam_per_step("DP path", launches, 16)
+            check_marches("DP path", launches)
             b1 = b1_at_last_step("DP path", sd, seen["xyz"], dev)
             times["dp_device_ms"], top = step_device_ms(lambda: chunk(sd), 8)
             times["plain_device_ms"], _ = step_device_ms(
@@ -1695,7 +1878,7 @@ def dp_run(dev, wrappers, card, tmp):
             del plain, sp, tr, sd, seen
             torch.cuda.empty_cache()
 
-            # scale 1.0: two cascades, exponential stepping, the lattice
+            # scale 1.0: two cascades, exponential stepping
             cfg1 = scale1_config()
             full, scene1, _ = make_synthetic_dataset(
                 n_images=24, img_wh=(160, 120), device=dev)
@@ -1713,17 +1896,20 @@ def dp_run(dev, wrappers, card, tmp):
                 f"-> {float(m1['loss'][-1]):.4f}, rm_samples last "
                 f"{int(m1['rm_samples'][-1])}; {times['dp_scale1_ms']:.2f} "
                 f"ms/step incl. the first step; launches {launches1}")
-            if launches1["march_lattice"] != 8 or not bool(
+            if launches1["march_select"] != 8 or not bool(
                     torch.isfinite(m1["loss"]).all()):
-                fail(f"DP path, scale 1.0: lattice launches "
-                     f"{launches1['march_lattice']} over 8 steps, or a "
+                fail(f"DP path, scale 1.0: march launches "
+                     f"{launches1['march_select']} over 8 steps, or a "
                      f"non-finite loss")
+            check_marches("DP path, scale 1.0", launches1)
             check_adam_per_step("DP path, scale 1.0", launches1, 8)
-            lattice = check_lattice(dev, train1, cfg1)
+            dp_march = check_march(
+                "DP path, scale 1.0", *march_case(
+                    "DP path, scale 1.0", cfg1, train1, s1.grid.occ_bool, dev)[1:])
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    return launches, launches1, b1, lattice, times
+    return launches, launches1, b1, dp_march, times
 
 
 # --------------------------------------- the population evaluators (20)
@@ -1801,6 +1987,7 @@ def population_run(dev, wrappers, card):
                  "differs from its serial run")
         check_adam_per_step("population evaluator", out["population_launches"],
                             steps)
+        check_marches("population evaluator", out["population_launches"])
         del tr, st
         torch.cuda.empty_cache()
 
@@ -1840,6 +2027,7 @@ def population_run(dev, wrappers, card):
             fail("loss-weight evaluator: a non-finite score, or particle 0 "
                  "differs from its serial run")
         check_adam_per_step("loss-weight evaluator", out["weights_launches"], 128)
+        check_marches("loss-weight evaluator", out["weights_launches"])
     return out
 
 
@@ -1869,7 +2057,7 @@ def main() -> None:
         group_segment_sum_tsf_sorted,
         segment_sum_sorted,
     )
-    from virus_nerf_tpu_torch.ops.ray_march import march_lattice
+    from virus_nerf_tpu_torch.ops.ray_march import march_lattice, march_select
     from virus_nerf_tpu_torch.ops.widen import widen_slabs_group
     from virus_nerf_tpu_torch.quality_run import subset
     from virus_nerf_tpu_torch.training.trainer import Trainer
@@ -1878,7 +2066,8 @@ def main() -> None:
                 "segment_sum_rows": group_segment_sum_t_sorted,
                 "segment_sum_factors": group_segment_sum_tsf_sorted,
                 "widen_slabs": widen_slabs_group,
-                "march_lattice": march_lattice}
+                "march_select": march_select, "march_lattice": march_lattice,
+                "marches": count_marches()}
 
     # ---- 1. build
     tic = time.perf_counter()
@@ -1931,8 +2120,23 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_launched("bench path", bench_launches, ("segment_sum", "fused_adam"))
     check_adam_per_step("bench path", bench_launches, 48)
-    if bench_launches["march_lattice"]:
-        fail("bench path: the constant-dt march launched the lattice kernel")
+    check_marches("bench path", bench_launches)
+    if bench_launches["march_select"] != 48:
+        fail(f"bench path: {bench_launches['march_select']} march launches "
+             f"over 48 steps, want one a step")
+    bench_step_launches = launches_per_step(trainer, state)
+    log(f"bench path: {bench_step_launches:.1f} CUDA kernel launches a step "
+        f"over steps 48-56 (host profile)")
+    # the fused march's inputs at the bench path's shapes (phase 21): its
+    # own S, the default configuration's S = 256 (the ETHZ run's march),
+    # and a full grid on which every long chord overflows
+    march_cases = [
+        march_case("bench, S=128", cfg, dataset, state.grid.occ_bool, dev),
+        march_case("constant, S=256", cfg, dataset, state.grid.occ_bool, dev,
+                   S=256),
+        march_case("full grid, S=256", cfg, dataset, state.grid.occ_bool, dev,
+                   S=256, full=True),
+    ]
 
     # ---- 4. B1 at the keys of the bench path's last step
     b1 = b1_at_last_step("bench path", state, seen["xyz"], dev)
@@ -1957,6 +2161,7 @@ def main() -> None:
         "XOR path", ["--hash-variant", "xor", *wide], wrappers, card)
     check_launched("XOR path", xor_launches, ("segment_sum_rows", "fused_adam"))
     check_adam_per_step("XOR path", xor_launches, 32)
+    check_marches("XOR path", xor_launches)
 
     # ---- 8. B3 at the keys of the XOR path's last step
     xor_cases = xor_segment_cases(state.model, xyz, dev)
@@ -1973,6 +2178,7 @@ def main() -> None:
     check_launched("slabs path", slabs_launches,
                    ("segment_sum_factors", "widen_slabs", "fused_adam"))
     check_adam_per_step("slabs path", slabs_launches, 32)
+    check_marches("slabs path", slabs_launches)
     # B2 on every leaf of the slabs model in one launch (the table and the
     # five MLP weights), with a float32 table and with the bfloat16 mode's
     # bf16 one
@@ -2022,6 +2228,7 @@ def main() -> None:
     check_launched("XOR mixed/bfloat16 steps", xor_modes_launches,
                    ("segment_sum_rows", "fused_adam"))
     check_adam_per_step("XOR mixed/bfloat16 steps", xor_modes_launches, 2)
+    check_marches("XOR mixed/bfloat16 steps", xor_modes_launches)
     del model, xyz
 
     # ---- 12. the scale-1.0 path: 16 of 24 images, then the held-out 8
@@ -2035,7 +2242,19 @@ def main() -> None:
     state, scale1_launches, xyz, _ = run_path(
         "scale-1.0 path", trainer, 48, 16, wrappers, card)
     b1_scale1 = b1_at_last_step("scale-1.0 path", state, xyz, dev)
+    scale1_step_launches = launches_per_step(trainer, state)
+    log(f"scale-1.0 path: {scale1_step_launches:.1f} CUDA kernel launches a "
+        f"step over steps 48-56 (host profile)")
     lattice = check_lattice(dev, train_ds, cfg)
+    # the march at scale 1.0 (exponential, the one-row VIRUS grid read past
+    # its end) and the evaluator's chunk (8192 rays, S = 512, no jitter)
+    march_cases += [
+        march_case("scale 1.0, one-row grid", cfg, train_ds,
+                   state.grid.occ_bool, dev),
+        march_case("evaluator chunk", cfg, train_ds, state.grid.occ_bool, dev,
+                   n=cfg.evaluation.batch_size,
+                   S=cfg.evaluation.max_samples_per_ray, zero_noise=True),
+    ]
     evaluate_scale1(trainer, state, test_ds, scene, info["img_wh"], card)
     del trainer, state, xyz, dataset, train_ds, test_ds
     torch.cuda.empty_cache()
@@ -2065,6 +2284,12 @@ def main() -> None:
     log(f"NGP path: threshold {float(state.grid.threshold):.4f}, USS "
         f"statistics updated {int(state.uss_stats.counts.sum())} times, "
         f"distortion term last {trainer.logs['loss_distortion'][-1]:.3e}")
+    # after the real-time checks: these steps draw from every image
+    ngp_step_launches = launches_per_step(trainer, state)
+    log(f"NGP path: {ngp_step_launches:.1f} CUDA kernel launches a step over "
+        f"steps 32-40 (host profile)")
+    march_cases.append(march_case("NGP, two-row grid", cfg, dataset,
+                                  state.grid.occ_bool, dev))
     del trainer, state, dataset
     torch.cuda.empty_cache()
 
@@ -2093,7 +2318,7 @@ def main() -> None:
 
     # ---- 19. data parallelism on NCCL
     with tempfile.TemporaryDirectory() as tmp:
-        dp_launches, dp1_launches, b1_dp, lattice_dp, dp_times = dp_run(
+        dp_launches, dp1_launches, b1_dp, march_dp, dp_times = dp_run(
             dev, wrappers, card, tmp)
     torch.cuda.empty_cache()
 
@@ -2101,9 +2326,14 @@ def main() -> None:
     pop = population_run(dev, wrappers, card)
     torch.cuda.empty_cache()
 
+    # ---- 21. the fused march against its plain version at the paths' shapes
+    march = {name: check_march(name, args, kw) for name, args, kw in march_cases}
+    del march_cases
+    torch.cuda.empty_cache()
+
     # ms: the kernel's calls of one step at the keys (B1, B3, B4) or table
-    # (B5) of its path; fused Adam on the 16 x 2 hash table; the lattice of
-    # one march of the scale-1.0 path
+    # (B5) of its path; fused Adam on the 16 x 2 hash table; one march at
+    # the default configuration's S = 256 (each case under "cases")
     paths = {"bench": bench_launches, "xor": xor_launches,
              "slabs": slabs_launches, "scale1": scale1_launches,
              "ngp": ngp_launches, "ethz": ethz_launches, "rh2": rh2_launches,
@@ -2117,8 +2347,8 @@ def main() -> None:
              "triplane": 48, "dp": 16, "dp_scale1": 8,
              "population": pop["population_steps"],
              "weights_eval": pop["weights_steps"]}
-    # a step's launches: the RH2 and PSO runs' evaluations march with the
-    # lattice too, so theirs are counted in the training steps alone
+    # a step's launches: the RH2 and PSO runs' evaluations march too, so
+    # theirs are counted in the training steps alone
     step_counts = dict(paths, rh2=rh2_step_launches, pso=pso_step_launches)
 
     def entry(name, key, source, replaces, main_paths, result, **extra):
@@ -2157,12 +2387,17 @@ def main() -> None:
               "virus_nerf_tpu/ops/widen_pack_pallas.py:90", ["slabs"], b5,
               groups_ms={k: v["ms"] for k, v in b5_groups.items()},
               groups_device_ms={k: v["device_ms"] for k, v in b5_groups.items()}),
-        # the port's own kernel: the lax.scan of _candidate_lattice, which
-        # has no Pallas counterpart
-        entry("march_lattice", "march_lattice", "march_lattice.cu",
-              "virus_nerf_tpu/ops/ray_march.py:114",
-              ["scale1", "ngp", "rh2", "pso", "dp_scale1"],
-              lattice, dp_scale1_check=lattice_dp, pallas_counterpart=None),
+        # the port's own kernel: the march from the cube hits to the
+        # layout (lattice, probe, selection), which has no Pallas
+        # counterpart; its standalone lattice entry point is off the paths
+        entry("march_select", "march_select", "march.cu",
+              "virus_nerf_tpu/ops/ray_march.py:88-158, :368-451",
+              list(paths), march["constant, S=256"], cases=march,
+              dp_scale1_check=march_dp, standalone_lattice=lattice,
+              launches_a_step={"bench": bench_step_launches,
+                               "scale1": scale1_step_launches,
+                               "ngp": ngp_step_launches},
+              pallas_counterpart=None),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

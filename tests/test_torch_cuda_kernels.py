@@ -20,10 +20,14 @@ from virus_nerf_tpu_torch.ops.fused_adam import (
     adam_update_plain_,
 )
 from virus_nerf_tpu_torch.ops import _build, hash_encoder, widen
+from virus_nerf_tpu_torch.ops import ray_march
+from virus_nerf_tpu_torch.ops.intersection import ray_aabb_intersect
 from virus_nerf_tpu_torch.ops.ray_march import (
     march_lattice,
     march_lattice_plain,
     march_rays_train,
+    march_select,
+    march_select_plain,
 )
 from virus_nerf_tpu_torch.ops import segment_sum as tss
 from virus_nerf_tpu_torch.ops.segment_sum import (
@@ -540,6 +544,91 @@ def test_march_lattice_kernel_is_bit_exact(cuda_device, n, K, esf, gs, scale, re
     cpu_ts, cpu_dts = march_lattice_plain(t1.cpu(), noise.cpu(), esf, gs, scale,
                                           K, res)
     assert torch.equal(ts.cpu(), cpu_ts) and torch.equal(dts.cpu(), cpu_dts)
+
+
+def _march_case(seed, scale, rows, fill, n, gs, dev):
+    """Rays inside and outside the cube (misses among them), their hits,
+    noise and a (rows, gs^3) grid with ``fill`` of its cells occupied."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.9 * scale, 0.9 * scale, (n, 3)).astype(np.float32)
+    o[: n // 8] = rng.uniform(1.2 * scale, 1.8 * scale, (n // 8, 3))
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d[: n // 16] = np.abs(d[: n // 16])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    hits = ray_aabb_intersect(o, d, scale)
+    noise = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    grid = torch.from_numpy(rng.random((rows, gs**3)) < fill).to(dev)
+    t1, t2 = hits.t().contiguous()
+    return o, d, t1, t2, noise, grid
+
+
+# (constant or exponential step, grid rows): scale and cascades
+MARCH_LATTICES = {
+    ("constant", 1): (0.5, 1, 0.0),
+    ("constant", 2): (1.0, 2, 0.0),
+    ("exponential", 1): (1.0, 2, 1 / 256),  # the VIRUS grid read past its end
+    ("exponential", 2): (1.0, 2, 1 / 256),  # the NGP grid
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S, K", [(256, 1024), (512, 1024), (24, 256), (300, 256)])
+@pytest.mark.parametrize("fill", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("lattice, rows", list(MARCH_LATTICES))
+def test_march_select_kernel_is_bit_exact(cuda_device, lattice, rows, fill, S, K):
+    scale, cascades, esf = MARCH_LATTICES[lattice, rows]
+    args = _march_case(S + K + rows, scale, rows, fill, 777, 128, cuda_device)
+    kw = dict(cascades=cascades, grid_size=128, scale=scale,
+              exp_step_factor=esf, max_samples=S, n_candidates=K,
+              march_resolution=min(K, 1024))
+    before = march_select.launches
+    got = march_select(*args, **kw)
+    want = march_select_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert march_select.launches == before + 1
+    for name, a, b in zip(("ts", "deltas", "valid", "n_kept"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        as_bits = torch.uint8 if a.dtype == torch.bool else torch.int32
+        assert torch.equal(a.view(as_bits), b.view(as_bits)), name
+    # and the CPU's plain version gives the same bits
+    cpu = march_select_plain(*(x.cpu() for x in args), **kw)
+    for a, b in zip(got, cpu):
+        assert torch.equal(a.cpu(), b)
+    n_kept = got[3]
+    if fill == 1.0 and S < K:
+        assert int(n_kept.max()) == S  # overflowing rays
+    if fill == 0.0:
+        assert int(n_kept.max()) == 0
+
+
+@pytest.mark.cuda
+def test_march_constants_match_the_kernel(cuda_device):
+    lib = _build.library()
+    assert lib.vn_march_chunk() == ray_march.MARCH_CHUNK
+    assert lib.vn_march_max_candidates() == ray_march.MARCH_MAX_CANDIDATES
+    assert lib.vn_march_max_samples() == ray_march.MARCH_MAX_SAMPLES
+    assert lib.vn_march_rays_per_block() >= 1
+
+
+@pytest.mark.cuda
+def test_march_select_kernel_rejects_bad_arguments(cuda_device):
+    o, d, t1, t2, noise, grid = _march_case(1, 0.5, 1, 0.5, 64, 32, cuda_device)
+    kw = dict(cascades=1, grid_size=32, scale=0.5, exp_step_factor=0.0,
+              max_samples=16, n_candidates=64)
+    before = march_select.launches
+    with pytest.raises(ValueError, match="grid on cpu"):
+        march_select(o, d, t1, t2, noise, grid.cpu(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        march_select(o.t().contiguous().t(), d, t1, t2, noise, grid, **kw)
+    with pytest.raises(ValueError, match="K <= 1024"):
+        march_select(o, d, t1, t2, noise, grid, **dict(kw, n_candidates=2048))
+    with pytest.raises(TypeError, match="float32 t1"):
+        march_select(o, d, t1.double(), t2, noise, grid, **kw)
+    assert march_select.launches == before
+    # no rays: nothing to launch, empty outputs
+    empty = march_select(o[:0], d[:0], t1[:0], t2[:0], noise[:0], grid, **kw)
+    assert [tuple(x.shape) for x in empty] == [(0, 16), (0, 16), (0, 16), (0,)]
 
 
 @pytest.mark.cuda

@@ -254,6 +254,27 @@ def _failing_rank(rank, world, init_method):
     return rank
 
 
+def _tensor_rank(rank, world, init_method):
+    # returns at once: the parent reads the tensors after the rank's
+    # function is done, from a process that must still be there
+    base = torch.arange(6, dtype=torch.float32) + 10 * rank
+    return dict(rank=rank, table=base.clone(),
+                nested={"rows": [base.reshape(2, 3) * 2, (rank, base[:2])]})
+
+
+def test_tensor_results_reach_the_parent_in_rank_order(tmp_path):
+    for _ in range(4):
+        results = spawn_ranks(_tensor_rank, 2, timeout=TIMEOUT,
+                              store_dir=str(tmp_path))
+        assert [r["rank"] for r in results] == [0, 1]
+        for rank, r in enumerate(results):
+            base = torch.arange(6, dtype=torch.float32) + 10 * rank
+            assert torch.equal(r["table"], base)
+            rows = r["nested"]["rows"]
+            assert torch.equal(rows[0], base.reshape(2, 3) * 2)
+            assert rows[1][0] == rank and torch.equal(rows[1][1], base[:2])
+
+
 def test_make_mesh_refuses_a_mismatched_trainer(tmp_path):
     ds, scene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
     cfg = dp_config()

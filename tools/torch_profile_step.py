@@ -33,7 +33,7 @@ a seeded random init, in one process and in this order:
    ``hash_encoder.group_segment_sum_t_sorted``,
    ``hash_encoder.group_segment_sum_tsf_sorted``,
    ``widen.widen_slabs_group``, ``fused_adam.adam_update_leaves_`` and
-   ``ray_march.march_lattice``) for their plain versions;
+   ``ray_march.march_select``) for their plain versions;
 8. with ``--route-ab`` (additive hash): in-train A/B of the routes
    ``corners``+``product`` against ``slabs``+``factors`` on the same
    state, 96 steps per turn in turns corners/slabs/slabs/corners twice
@@ -101,7 +101,7 @@ def plain_kernels(on: bool):
     stack.enter_context(mock.patch.object(
         fused_adam, "adam_update_leaves_", fused_adam.adam_update_leaves_plain_))
     stack.enter_context(mock.patch.object(
-        ray_march, "march_lattice", ray_march.march_lattice_plain))
+        ray_march, "march_select", ray_march.march_select_plain))
     return stack
 
 
@@ -132,7 +132,7 @@ PORT_KERNELS = {
     "B3 segment_sum_rows": ("RowLoader",),
     "B4 segment_sum_factors": ("FactorLoader",),
     "B5 widen_slabs": ("widen_slabs_kernel",),
-    "L1 march_lattice": ("march_lattice_kernel",),
+    "L1 march_select": ("march_select_kernel",),
 }
 
 

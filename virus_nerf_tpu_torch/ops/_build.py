@@ -72,6 +72,14 @@ _SIGNATURES = {
     "vn_fused_adam": (_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P),
     "vn_fused_adam_max_leaves": (),
     "vn_fused_adam_chunk": (),
+    # rays_o, rays_d, t1, t2, noise, grid, numel, gs, cascades, scale, esf,
+    # lo, hi, dt0, ts, deltas, valid, n_kept, n, S, K, stream
+    "vn_march_select": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                        _F, _P, _P, _P, _P, _I, _I, _I, _P),
+    "vn_march_chunk": (),
+    "vn_march_rays_per_block": (),
+    "vn_march_max_candidates": (),
+    "vn_march_max_samples": (),
     # t1, noise, ts, dts, n, K, esf, lo, hi, stream
     "vn_march_lattice": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
 }

@@ -209,12 +209,17 @@ def replica_mismatches(state: TrainState, mesh: Mesh) -> List[str]:
 
 
 # ---------------------------------------------------------------- spawning
-def _rank_entry(fn, rank, world, init_method, results, args):
+def _rank_entry(fn, rank, world, init_method, results, read, timeout, args):
     try:
         results.put((rank, True, fn(rank, world, init_method, *args)))
     except BaseException:  # reported to the parent, which raises
         results.put((rank, False, traceback.format_exc()))
     finally:
+        # a tensor in the result crosses the queue as a handle to this
+        # process's shared memory, which the parent's ``get`` fetches from
+        # this process: it stays alive until the parent has read every
+        # result (or gave up)
+        read.wait(timeout)
         if dist.is_initialized():
             dist.destroy_process_group()
 
@@ -228,15 +233,17 @@ def spawn_ranks(fn: Callable, world: int, args: Sequence = (),
     (a temporary directory when None) for ``make_mesh``.  A rank that
     raises, dies, or outlives ``timeout`` seconds fails the call: every
     rank is then killed and RuntimeError or TimeoutError raised.  ``fn``
-    and ``args`` must be picklable (``fn`` a module-level function)."""
+    and ``args`` must be picklable (``fn`` a module-level function).
+    A rank's process lives until every result has been read, so a result
+    may hold tensors."""
     ctx = torch.multiprocessing.get_context("spawn")
     own = store_dir is None
     store_dir = tempfile.mkdtemp(prefix="vnerf_ranks_") if own else store_dir
     store = os.path.join(store_dir, f"store_{os.getpid()}_{time.time_ns()}")
-    results = ctx.Queue()
+    results, read = ctx.Queue(), ctx.Event()
     procs = [ctx.Process(target=_rank_entry, daemon=True,
-                         args=(fn, r, world, f"file://{store}", results,
-                               tuple(args)))
+                         args=(fn, r, world, f"file://{store}", results, read,
+                               timeout, tuple(args)))
              for r in range(world)]
     out = {}
     deadline = time.monotonic() + timeout
@@ -258,9 +265,11 @@ def spawn_ranks(fn: Callable, world: int, args: Sequence = (),
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{value}")
             out[rank] = value
+        read.set()
         for p in procs:
             p.join(timeout=max(1.0, deadline - time.monotonic()))
     finally:
+        read.set()
         for p in procs:
             if p.is_alive():
                 p.kill()
