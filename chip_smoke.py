@@ -141,7 +141,32 @@ Phases, each printed as it finishes; any failure exits non-zero:
     rows, and the evaluator's chunk (8192 rays, S = 512, no jitter); each
     timed in turns with the plain version (events, and profiler device
     time: the kernel's, the plain chain's kernels and their launches)
-    beside its bound.
+    beside its bound;
+22. the evaluator's remainder on the ETHZ run's map (15 writes its
+    ``log.txt`` through ``--override save_dir=``): the trainer's START,
+    step and FINISHED lines in it; ``Evaluator.density_slice`` (nanmax
+    over 3 heights) and ``utils.deployment.infer_density_map`` (mean) at
+    256 x 256 on the card, for the run's corners route and for the slabs
+    route (B5 launched), each within 1e-4 of |x| / max(1, |x|) of the same
+    calls on a CPU copy of the model; ``export_nerf_pointcloud`` from 16
+    test poses at 2 heights (one fused march a chunk) to a PCD read back
+    equal, with points; ``save_deployment_model``, reloaded: the JAX
+    payload's keys in order, their shapes, the per-level scale and the
+    bitfield's set bits equal to the occupied cells;
+23. the final evaluation of the ETHZ (after 22) and RH2 (after 16) maps
+    dense and with ``evaluation.sample_budget`` = 8192 * 32 (the training
+    budget's rule at the evaluation chunk), in turns sampled, dense,
+    dense, sampled: seconds, peak device GiB, NeRF NND z3 and PSNR of
+    each, samples marched a chunk and samples over the budget;
+24. the 2-D ``(pop, data)`` population nesting of
+    ``optimization.parallel_eval`` as ``(1, 1)`` on one card (a one-rank
+    NCCL group) in deterministic mode: 4 particles x 16 steps of the bench
+    configuration, scores equal to the 1-D evaluator's; B1 2, B2 1 and the
+    march 1 launch a step;
+25. without matplotlib (after 23 on the ETHZ map): every new module
+    (analysis, plots, deployment, logging) imports in a fresh interpreter
+    that cannot import matplotlib, and ``evaluate(plot=True)`` raises
+    ImportError naming matplotlib before it renders.
 
 On every path the renderer's marches on the card are counted, and each
 must have launched ``march_select`` once (no path launches the
@@ -1409,7 +1434,8 @@ def check_run_files(name, save, metrics, n_color):
 def ethz_run(dev, wrappers, card, tmp):
     """The ETHZ run (phase 15): fixture, decode and read, ``run.main`` with
     the kernel counts set to 0 just before and read just after, the checks
-    of the module doc.  Returns (launches, B1 at the run's last step)."""
+    of the module doc.  Returns (launches, B1 at the run's last step, the
+    trainer, its state, the run's directory)."""
     from virus_nerf_tpu_torch import run
     from virus_nerf_tpu_torch.data import ethz
     from virus_nerf_tpu_torch.data.ethz_fixture import generate_ethz_fixture
@@ -1441,7 +1467,8 @@ def ethz_run(dev, wrappers, card, tmp):
              f"{cloud.shape}")
 
     save = os.path.join(tmp, "run")
-    argv = ["--save-dir", save, "--override", "dataset.name=ETHZ",
+    argv = ["--save-dir", save, "--override", f"save_dir={save}",
+            "--override", "dataset.name=ETHZ",
             "--override", f"ethz.dataset_dir={root}",
             "--override", "training.max_steps=48",
             "--override", "training.max_time=1e9"]
@@ -1484,7 +1511,8 @@ def ethz_run(dev, wrappers, card, tmp):
         fail("ETHZ run: the reloaded checkpoint differs from the trained state")
 
     # B1 at the keys of the run's last step: a real room's keys
-    return launches, b1_at_last_step("ETHZ run", state, r["xyz"], dev)
+    return (launches, b1_at_last_step("ETHZ run", state, r["xyz"], dev),
+            trainer, state, save)
 
 
 def rh2_run(dev, wrappers, card, tmp):
@@ -1545,7 +1573,7 @@ def rh2_run(dev, wrappers, card, tmp):
              f"{set(ds.sensor_ids.tolist())}, depths {list(ds.depths)}")
     check_run_files("RH2 run", save, r["metrics"], 8)
     return (root, launches, r["step_launches"],
-            b1_at_last_step("RH2 run", state, r["xyz"], dev))
+            b1_at_last_step("RH2 run", state, r["xyz"], dev), trainer, state)
 
 
 def pso_run(root, wrappers, card, tmp):
@@ -2031,6 +2059,345 @@ def population_run(dev, wrappers, card):
     return out
 
 
+# ---------------------------------- the evaluator's remainder (22-25)
+def route_model(trainer, model, route, device):
+    """A copy of ``model`` on ``device`` with the hash forward ``route``."""
+    from virus_nerf_tpu_torch.models.ngp import NGPModel
+
+    copy_ = NGPModel(**{**trainer.model_kwargs, "hash_forward": route},
+                     device=device)
+    copy_.load_state_dict({k: v.to(device)
+                           for k, v in model.state_dict().items()})
+    return copy_
+
+
+def density_gap(card, cpu):
+    """Largest |card - cpu| / max(1, |cpu|) (the NGP grid's tolerance of a
+    density in ``reference_step``)."""
+    return float(np.max(np.abs(card - cpu) / np.maximum(1.0, np.abs(cpu))))
+
+
+def ethz_remainder(trainer, state, save, wrappers, card, tmp):
+    """Phase 22 on the ETHZ run's map: ``log.txt``; ``density_slice`` and
+    ``infer_density_map`` on the card, for the run's route and the slabs
+    route (B5), each against the same calls on a CPU copy of the model;
+    ``export_nerf_pointcloud`` (L1 once a chunk) to a PCD read back; and
+    ``save_deployment_model``, reloaded.  Every kernel count is set to 0
+    just before each part and read just after.  Returns the launches of
+    the density probes and of the export, and their numbers."""
+    from virus_nerf_tpu_torch.data.pcl import load_pcd
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+    from virus_nerf_tpu_torch.utils.deployment import (
+        infer_density_map,
+        save_deployment_model,
+    )
+
+    cfg, dev, scene = trainer.cfg, trainer.device, trainer.scene
+    out = {}
+    with open(os.path.join(save, "log.txt")) as f:
+        lines = f.read().splitlines()
+    marks = [sum("----- START TRAINING -----" in x for x in lines),
+             sum("----- FINISHED TRAINING -----" in x for x in lines),
+             sum(" | loss " in x for x in lines)]
+    log(f"ETHZ log.txt: {len(lines)} lines, START {marks[0]}, FINISHED "
+        f"{marks[1]}, step lines {marks[2]}; first {lines[:1]}")
+    if marks[:2] != [1, 1] or marks[2] < 1:
+        fail("ETHZ run: log.txt lacks the trainer's START/FINISHED/step lines")
+
+    # the density probes: the run's route (corners) and the slabs route
+    ev = Evaluator(cfg, trainer.test_dataset, scene, img_wh=trainer.img_wh,
+                   device=dev)
+    height_w = float(np.mean(scene.c2w(ev.ds["poses"][:, :3, 3])[:, 2]))
+    height_c = float(scene.w2c(np.array([[0.0, 0.0, height_w]]))[0, 2])
+    tol_c = float(scene.w2c(cfg.evaluation.height_tolerance, only_scale=True))
+    L, A, thr = 256, 3, cfg.evaluation.density_map_thr
+    B = cfg.evaluation.batch_size
+    density_launches = {k: 0 for k in wrappers}
+    for route in ("corners", "slabs"):
+        res, secs = {}, {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = route_model(trainer, state.model, route, d)
+            torch.cuda.synchronize()
+            reset_counts(wrappers)
+            tic = time.perf_counter()
+            dm, dthr = ev.density_slice(model, L, height_w, A,
+                                        cfg.evaluation.height_tolerance, thr)
+            im = infer_density_map(model, L, height_c, A, tol_c, batch_size=B)
+            torch.cuda.synchronize()
+            secs[where] = time.perf_counter() - tic
+            if where == "card":
+                for k, v in read_counts(wrappers).items():
+                    density_launches[k] += v
+            res[where] = (dm, dthr, im)
+            del model
+        (dm, dthr, im), (dm_c, dthr_c, im_c) = res["card"], res["cpu"]
+        gap_slice, gap_map = density_gap(dm, dm_c), density_gap(im, im_c)
+        near = np.abs(dm_c - thr) <= 1e-4 * np.maximum(1.0, np.abs(dm_c))
+        flips = int((dthr != dthr_c)[~near].sum())
+        log(f"ETHZ density, {route} route: density_slice {L}x{L}x{A} at "
+            f"{height_w:.3f} m +- {cfg.evaluation.height_tolerance} (nanmax, "
+            f"threshold {thr:g}: {int(dthr.sum())} cells) and "
+            f"infer_density_map (mean) on the card {secs['card']:.3f} s, on "
+            f"the CPU copy {secs['cpu']:.3f} s; max |card - CPU| / max(1, "
+            f"|CPU|) {gap_slice:.2e} and {gap_map:.2e} (tol 1e-4); thresholded "
+            f"cells that differ away from the threshold {flips}; "
+            f"density range [{dm.min():.3g}, {dm.max():.3g}]")
+        if gap_slice > 1e-4 or gap_map > 1e-4 or flips or not np.all(
+                np.isfinite(dm)) or dm.shape != (L, L):
+            fail(f"ETHZ density ({route}): the card disagrees with the CPU")
+        out[f"density_{route}"] = {"card_s": secs["card"], "cpu_s": secs["cpu"],
+                                   "max_rel_err": max(gap_slice, gap_map)}
+    log(f"ETHZ density probes: kernel launches {density_launches}")
+    check_launched("ETHZ density probes (slabs route)", density_launches,
+                   ("widen_slabs",))
+
+    # the point-cloud export: 16 test poses x 2 heights x res_angular rays
+    origins = scene.c2w(ev.ds["poses"][:16, :3, 3])
+    path = os.path.join(tmp, "nerf_pcl", "cloud.pcd")
+    n_rays = origins.shape[0] * 2 * cfg.evaluation.res_angular
+    chunks = -(-n_rays // B)
+    torch.cuda.synchronize()
+    reset_counts(wrappers)
+    tic = time.perf_counter()
+    pts = ev.export_nerf_pointcloud(state.model, state.grid.occ_bool, origins,
+                                    path)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - tic
+    export_launches = read_counts(wrappers)
+    back = load_pcd(path)
+    log(f"ETHZ export_nerf_pointcloud: {n_rays} rays in {chunks} chunks, "
+        f"{pts.shape[0]} points (opacity > 0.5) in {export_s:.3f} s, PCD of "
+        f"{os.path.getsize(path)} bytes read back {back.shape}; launches "
+        f"{export_launches}")
+    check_marches("ETHZ export", export_launches)
+    if (export_launches["march_select"] != chunks or pts.shape[0] == 0
+            or not np.array_equal(back, pts.astype(np.float32))):
+        fail("ETHZ export: wrong launches, an empty cloud, or the PCD differs")
+    out["export_s"], out["export_points"] = export_s, int(pts.shape[0])
+
+    # the deployment export
+    m = state.model
+    grid = state.grid.occ_3d_grid.reshape(1, -1)
+    tic = time.perf_counter()
+    dpath = save_deployment_model(m, grid, trainer.train_dataset.poses, save)
+    dep = np.load(dpath, allow_pickle=True).item()
+    dep_s = time.perf_counter() - tic
+    width = m.rgb_net[-1].weight.shape[1]
+    want = {
+        "poses": (trainer.train_dataset.n_images, 3, 4),
+        "model.density_bitfield": (cfg.model.grid_size**3 // 8,),
+        "model.hash_encoder.params": (m.pos_table.numel(),),
+        "model.xyz_encoder.params": (sum(x.weight.numel() for x in m.xyz_net),),
+        "model.rgb_net.params": (sum(x.weight.numel() for x in m.rgb_net[:-1])
+                                 + 16 * width,),
+    }
+    shapes = {k: np.shape(v) for k, v in dep.items()}
+    bits = int(np.unpackbits(dep["model.density_bitfield"]).sum())
+    occupied = int((grid > 0.5).sum())
+    log(f"ETHZ deployment.npy: {os.path.getsize(dpath)} bytes in "
+        f"{dep_s:.2f} s; keys and shapes {shapes}; per_level_scale "
+        f"{dep['model.per_level_scale']!r}; bitfield bits set {bits}, "
+        f"occupied cells {occupied}")
+    if (list(dep) != ["poses", *list(want)[1:3], "model.per_level_scale",
+                      *list(want)[3:]]
+            or any(shapes[k] != v for k, v in want.items())
+            or dep["model.per_level_scale"] != m.hash_spec.log_b
+            or bits != occupied):
+        fail("ETHZ deployment.npy: wrong keys, shapes or bitfield")
+    return density_launches, export_launches, out
+
+
+def no_matplotlib_check(trainer, state, tmp):
+    """Phase 25: every new module imports in a fresh interpreter in which
+    matplotlib cannot be imported, and ``evaluate(plot=True)`` raises
+    ImportError naming matplotlib (here, with matplotlib blocked too)."""
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+
+    code = """
+import importlib, sys
+class NoMatplotlib:
+    def find_spec(self, name, path=None, target=None):
+        if name == "matplotlib" or name.startswith("matplotlib."):
+            raise ImportError(f"No module named {name!r}")
+sys.meta_path.insert(0, NoMatplotlib())
+mods = ["virus_nerf_tpu_torch.analysis",
+        "virus_nerf_tpu_torch.analysis.result_plots",
+        "virus_nerf_tpu_torch.analysis.uss_experiments",
+        "virus_nerf_tpu_torch.evaluation.plots",
+        "virus_nerf_tpu_torch.optimization.plots",
+        "virus_nerf_tpu_torch.utils.deployment",
+        "virus_nerf_tpu_torch.utils.logging"]
+for m in mods:
+    importlib.import_module(m)
+print("imported", len(mods), "modules")
+"""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here),
+                          capture_output=True, text=True, timeout=300)
+    log(f"without matplotlib: {proc.stdout.strip()} (exit {proc.returncode}) "
+        f"{proc.stderr.strip()[-500:]}")
+    if proc.returncode != 0:
+        fail("a new module does not import without matplotlib")
+    ev = Evaluator(trainer.cfg, trainer.test_dataset, trainer.scene,
+                   img_wh=trainer.img_wh, device=trainer.device)
+    with mock.patch.dict(sys.modules, {"matplotlib": None,
+                                       "matplotlib.pyplot": None}):
+        try:
+            ev.evaluate(state.model, state.grid.occ_bool,
+                        save_dir=os.path.join(tmp, "plots"), plot=True)
+        except ImportError as e:
+            log(f"evaluate(plot=True) without matplotlib: ImportError: {e}")
+            if "matplotlib" not in str(e):
+                fail("evaluate(plot=True): the ImportError does not name "
+                     "matplotlib")
+        else:
+            fail("evaluate(plot=True) without matplotlib did not raise")
+
+
+def eval_budget(name, trainer, state, wrappers, card):
+    """Phase 23 on a recorded room's trained map: the final evaluation
+    (``Evaluator.evaluate`` with the run's defaults) dense and with
+    ``evaluation.sample_budget`` = the training's automatic rule at the
+    evaluation's chunk (batch_size * min(32, max_samples_per_ray)), in
+    turns sampled, dense, dense, sampled: seconds, peak device GiB above
+    what the map holds, NND z3 and PSNR of each, and the samples the dense
+    march keeps a chunk.  Returns (launches, numbers)."""
+    import copy
+
+    from virus_nerf_tpu_torch.evaluation import evaluator as evmod
+
+    cfg = trainer.cfg
+    budget = cfg.evaluation.batch_size * min(32, cfg.evaluation.max_samples_per_ray)
+    render = evmod.render_rays
+    seen = []
+
+    def counted(*args, **kwargs):
+        res = render(*args, **kwargs)
+        seen.append((res["rm_samples"], res["overflow"]))
+        return res
+
+    runs = {"sampled": [], "dense": []}
+    launches = {k: 0 for k in wrappers}
+    with mock.patch.object(evmod, "render_rays", counted):
+        for mode in ("sampled", "dense", "dense", "sampled"):
+            c = copy.deepcopy(cfg)
+            c.evaluation.sample_budget = budget if mode == "sampled" else None
+            ev = evmod.Evaluator(c, trainer.test_dataset, trainer.scene,
+                                 img_wh=trainer.img_wh, device=trainer.device)
+            seen.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts(wrappers)
+            tic = time.perf_counter()
+            m = ev.evaluate(state.model, state.grid.occ_bool)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - tic
+            for k, v in read_counts(wrappers).items():
+                launches[k] += v
+            samples = torch.stack([x for x, _ in seen]).double()
+            over = int(torch.stack([y for _, y in seen]).sum())
+            runs[mode].append({
+                "seconds": sec,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "above_map_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                "nnd_z3": float(m["NeRF"]["nn_mean"]["zone3"]),
+                "psnr": float(m["NeRF"]["psnr"]),
+                "chunks": len(seen),
+                "samples_a_chunk_mean": float(samples.mean()),
+                "samples_a_chunk_max": float(samples.max()),
+                "overflow_samples": over})
+            del ev
+    for mode in ("dense", "sampled"):
+        r = runs[mode]
+        log(f"{name} evaluation, {mode}"
+            f"{f' (sample_budget {budget})' if mode == 'sampled' else ''}: "
+            f"{[round(x['seconds'], 2) for x in r]} s, peak "
+            f"{[round(x['peak_gib'], 2) for x in r]} GiB "
+            f"({[round(x['above_map_gib'], 2) for x in r]} above the map), "
+            f"NeRF nn_mean z3 {[x['nnd_z3'] for x in r]} m, psnr "
+            f"{[round(x['psnr'], 3) for x in r]}; {r[0]['chunks']} render "
+            f"chunks, marched samples a chunk mean "
+            f"{r[0]['samples_a_chunk_mean']:.0f} max "
+            f"{r[0]['samples_a_chunk_max']:.0f}, samples over the budget "
+            f"{r[0]['overflow_samples']}; on {card}")
+        if not all(np.isfinite(x["nnd_z3"]) for x in r):
+            fail(f"{name} evaluation ({mode}): non-finite NND")
+    check_marches(f"{name} evaluations", launches)
+    numbers = {mode: {k: [x[k] for x in r] for k in r[0]}
+               for mode, r in runs.items()}
+    numbers["sample_budget"] = budget
+    return launches, numbers
+
+
+def mesh2d_run(dev, wrappers, card, tmp):
+    """Phase 24: ``optimization.parallel_eval``'s 2-D ``(pop, data)``
+    nesting on the cards present, ``(1, 1)`` on one card (a process group
+    of one rank on NCCL): the loss weights of 4 particles, 16 steps each
+    on the bench configuration (16 of 24 images), in PyTorch's
+    deterministic mode; the scores equal to the 1-D evaluator's for the
+    same positions and seeds; B1 2, B2 1 and the march 1 launch a step.
+    Returns (launches, steps, seconds)."""
+    import torch.distributed as dist
+
+    from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from virus_nerf_tpu_torch.optimization.parallel_eval import (
+        make_population_eval as weights_eval,
+    )
+    from virus_nerf_tpu_torch.parallel import make_mesh
+    from virus_nerf_tpu_torch.quality_run import subset
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    cfg = bench_config()
+    full, scene, _ = make_synthetic_dataset(n_images=24, img_wh=(160, 120),
+                                            device=dev)
+    train = subset(full, np.arange(24) % 3 != 0)
+    trainer = Trainer(cfg, train, scene=scene, device=dev)
+    weights = np.array([[1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 8.0, 8.0],
+                        [0.2, 1.0, 1.0, 1.0], [1.0, 1.0, 0.1, 0.1]],
+                       np.float32)
+    steps = 16
+    make_mesh(1, rank=0, device=dev, backend="nccl",
+              init_method=f"file://{os.path.join(tmp, 'mesh2d_store')}")
+    try:
+        with deterministic():
+            evals = {"2-D": weights_eval(trainer, steps=steps, devices=[[dev]]),
+                     "1-D": weights_eval(trainer, steps=steps, devices=[dev])}
+            secs, scores = {"2-D": [], "1-D": []}, {}
+            # in turns 2-D, 1-D, 1-D, 2-D; the counts of the first call
+            for i, kind in enumerate(("2-D", "1-D", "1-D", "2-D")):
+                torch.cuda.synchronize()
+                reset_counts(wrappers)
+                tic = time.perf_counter()
+                got = evals[kind](weights)
+                torch.cuda.synchronize()
+                secs[kind].append(time.perf_counter() - tic)
+                if i == 0:
+                    launches = read_counts(wrappers)
+                if kind in scores and not np.array_equal(scores[kind], got):
+                    fail(f"2-D population: two {kind} calls differ")
+                scores[kind] = got
+    finally:
+        dist.destroy_process_group()
+    n_steps = len(weights) * steps
+    s2, s1 = scores["2-D"], scores["1-D"]
+    sec2, sec1 = secs["2-D"], secs["1-D"]
+    log(f"2-D (pop, data) population, (1, 1) on one card: 4 particles x "
+        f"{steps} steps in {[round(x, 3) for x in sec2]} s (the 1-D "
+        f"evaluator {[round(x, 3) for x in sec1]} s; in turns 2-D, 1-D, "
+        f"1-D, 2-D); scores {s2.tolist()}, 1-D {s1.tolist()}; launches "
+        f"{launches}; on {card}")
+    if not (np.all(np.isfinite(s2)) and np.array_equal(s1, s2)):
+        fail("2-D population: scores not finite or not the 1-D evaluator's")
+    check_adam_per_step("2-D population", launches, n_steps)
+    check_marches("2-D population", launches)
+    if launches["segment_sum"] != 2 * n_steps:
+        fail(f"2-D population: {launches['segment_sum']} B1 launches over "
+             f"{n_steps} steps, want 2 a step")
+    return launches, n_steps, {"mesh_s": sec2, "flat_s": sec1}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -2298,15 +2665,30 @@ def main() -> None:
     reference_step(dev, "additive", scale=1.0, grid_type="ngp")
     reference_step(dev, "additive", distortion=1e-2)
 
-    # ---- 15. the ETHZ run through run.py
+    # ---- 15. the ETHZ run through run.py; 22. the evaluator's remainder
+    # on its map; 23. its final evaluation sampled and dense; 25. without
+    # matplotlib
     with tempfile.TemporaryDirectory() as tmp:
-        ethz_launches, b1_ethz = ethz_run(dev, wrappers, card, tmp)
+        ethz_launches, b1_ethz, trainer, state, save = ethz_run(
+            dev, wrappers, card, tmp)
+        density_launches, export_launches, remainder = ethz_remainder(
+            trainer, state, save, wrappers, card, tmp)
+        budget = {}
+        budget_ethz_launches, budget["ethz"] = eval_budget(
+            "ETHZ", trainer, state, wrappers, card)
+        no_matplotlib_check(trainer, state, tmp)
+        del trainer, state
     torch.cuda.empty_cache()
 
-    # ---- 16. the RH2 run through run.py at scale 1.0; 17. PSO over it
+    # ---- 16. the RH2 run through run.py at scale 1.0; 23. its final
+    # evaluation sampled and dense; 17. PSO over it
     with tempfile.TemporaryDirectory() as tmp:
-        root, rh2_launches, rh2_step_launches, b1_rh2 = rh2_run(
+        root, rh2_launches, rh2_step_launches, b1_rh2, trainer, state = rh2_run(
             dev, wrappers, card, tmp)
+        torch.cuda.empty_cache()
+        budget_rh2_launches, budget["rh2"] = eval_budget(
+            "RH2", trainer, state, wrappers, card)
+        del trainer, state
         torch.cuda.empty_cache()
         pso_launches, pso_step_launches, pso_steps = pso_run(
             root, wrappers, card, tmp)
@@ -2326,6 +2708,12 @@ def main() -> None:
     pop = population_run(dev, wrappers, card)
     torch.cuda.empty_cache()
 
+    # ---- 24. the 2-D (pop, data) population nesting
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_launches, mesh_steps, mesh_times = mesh2d_run(dev, wrappers,
+                                                           card, tmp)
+    torch.cuda.empty_cache()
+
     # ---- 21. the fused march against its plain version at the paths' shapes
     march = {name: check_march(name, args, kw) for name, args, kw in march_cases}
     del march_cases
@@ -2341,15 +2729,22 @@ def main() -> None:
              "triplane": tri_launches, "dp": dp_launches,
              "dp_scale1": dp1_launches,
              "population": pop["population_launches"],
-             "weights_eval": pop["weights_launches"]}
+             "weights_eval": pop["weights_launches"],
+             "mesh_2d": mesh_launches, "ethz_density": density_launches,
+             "ethz_export": export_launches,
+             "eval_budget": {k: budget_ethz_launches[k] + budget_rh2_launches[k]
+                             for k in wrappers}}
     steps = {"bench": 48, "xor": 32, "slabs": 32, "scale1": 48, "ngp": 32,
              "ethz": 48, "rh2": 48, "pso": pso_steps, "xor_modes": 2,
              "triplane": 48, "dp": 16, "dp_scale1": 8,
              "population": pop["population_steps"],
-             "weights_eval": pop["weights_steps"]}
-    # a step's launches: the RH2 and PSO runs' evaluations march too, so
-    # theirs are counted in the training steps alone
-    step_counts = dict(paths, rh2=rh2_step_launches, pso=pso_step_launches)
+             "weights_eval": pop["weights_steps"], "mesh_2d": mesh_steps}
+    # a step's launches of the training paths: the RH2 and PSO runs'
+    # evaluations march too, so theirs are counted in the training steps
+    # alone
+    step_counts = {p: c for p, c in dict(
+        paths, rh2=rh2_step_launches, pso=pso_step_launches).items()
+        if p in steps}
 
     def entry(name, key, source, replaces, main_paths, result, **extra):
         return {"name": name, "route": "cuda",
@@ -2365,9 +2760,9 @@ def main() -> None:
         entry("segment_sum_sorted", "segment_sum", "segment_sum.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:231",
               ["bench", "scale1", "ngp", "ethz", "rh2", "pso", "dp",
-               "dp_scale1", "population", "weights_eval"], b1,
+               "dp_scale1", "population", "weights_eval", "mesh_2d"], b1,
               scale1_step=b1_scale1, ethz_step=b1_ethz, rh2_step=b1_rh2,
-              dp_step=b1_dp, **skew["ts"]),
+              dp_step=b1_dp, mesh_2d_seconds=mesh_times, **skew["ts"]),
         entry("fused_adam", "fused_adam", "fused_adam.cu",
               "virus_nerf_tpu/ops/fused_adam.py:37", list(paths),
               adam[xor_table_n], bf16_params=adam_bf16,
@@ -2384,7 +2779,8 @@ def main() -> None:
               b4[torch.bfloat16], float32_factors=b4[torch.float32],
               **skew["tsf"]),
         entry("widen_slabs_group", "widen_slabs", "widen_slabs.cu",
-              "virus_nerf_tpu/ops/widen_pack_pallas.py:90", ["slabs"], b5,
+              "virus_nerf_tpu/ops/widen_pack_pallas.py:90",
+              ["slabs", "ethz_density"], b5, density_probes=remainder,
               groups_ms={k: v["ms"] for k, v in b5_groups.items()},
               groups_device_ms={k: v["device_ms"] for k, v in b5_groups.items()}),
         # the port's own kernel: the march from the cube hits to the
@@ -2393,6 +2789,7 @@ def main() -> None:
         entry("march_select", "march_select", "march.cu",
               "virus_nerf_tpu/ops/ray_march.py:88-158, :368-451",
               list(paths), march["constant, S=256"], cases=march,
+              evaluation_sample_budget=budget,
               dp_scale1_check=march_dp, standalone_lattice=lattice,
               launches_a_step={"bench": bench_step_launches,
                                "scale1": scale1_step_launches,

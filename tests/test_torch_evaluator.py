@@ -2,11 +2,15 @@
 the JAX ``Evaluator``: both score the same trained model (the JAX trainer's
 parameters and grid after a few steps, converted with ``convert.py``) on
 the same images at small sizes (4 images of 32x24, 64-ray scans, 16 x 2
-XOR hash of 2^12 rows, 32^3 grid).  Also the numpy copies (geometry,
-metrics) against the JAX modules, and ``quality_run`` end to end at a
-tiny size."""
+XOR hash of 2^12 rows, 32^3 grid).  Also the density slice, the LiDAR
+packing (exactly) and its scoring, the point-cloud export, the plots'
+need for matplotlib, the numpy copies (geometry, metrics) against the JAX
+modules, and ``quality_run`` end to end at a tiny size."""
 
 import json
+import os
+import sys
+from unittest import mock
 
 import jax
 import numpy as np
@@ -21,8 +25,10 @@ from virus_nerf_tpu.evaluation import geometry as jgeo
 from virus_nerf_tpu.evaluation import metrics as jmet
 from virus_nerf_tpu.training import Trainer as JTrainer
 from virus_nerf_tpu_torch import quality_run
+from virus_nerf_tpu.data.pcl import load_pcd as j_load_pcd
 from virus_nerf_tpu_torch.configs.config import Config
 from virus_nerf_tpu_torch.convert import grid_from_jax, params_from_jax
+from virus_nerf_tpu_torch.data.pcl import load_pcd
 from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from virus_nerf_tpu_torch.evaluation import geometry as tgeo
 from virus_nerf_tpu_torch.evaluation import metrics as tmet
@@ -174,8 +180,10 @@ def test_entry_points_refuse_the_cpu_fallback():
                                           n_gt_points=10, device="cpu")
     with pytest.raises((RuntimeError, AssertionError)):
         Evaluator(Config(), ds, scene, img_wh=(8, 6))
-    with pytest.raises(SystemExit):
-        quality_run.parse_args(["--save-renders", "x"])
+    # the quality run's default device is the card too; --save-renders is
+    # taken (render export is ported)
+    args = quality_run.parse_args(["--save-renders", "x"])
+    assert args.device == "cuda" and args.save_renders == "x"
 
 
 def test_quality_run_tiny_on_cpu(tmp_path, monkeypatch):
@@ -206,8 +214,18 @@ def test_quality_run_tiny_on_cpu(tmp_path, monkeypatch):
         "--hash-levels", "16", "--hash-feats", "2", "--samples-per-ray", "4",
         "--max-samples", "8", "--eval-every", "4", "--eval-occ", "both",
         "--device", "cpu", "--out", str(out),
+        "--save-renders", str(tmp_path / "renders"),
     ])
     res = json.loads(out.read_text())
+    # the JAX tool's layout (tools/quality_run.py:185-193): metrics.csv and
+    # renders/ from the grid's evaluation, renders_ones/ from the all-ones
+    # colour pass, three images of each of the 8 held-out views
+    root = tmp_path / "renders"
+    assert (root / "metrics.csv").exists()
+    for sub in ("renders", "renders_ones"):
+        names = sorted(os.listdir(root / sub))
+        assert len(names) == 3 * 8, (sub, names)
+        assert {n.split("_0")[0] for n in names} == {"rgb", "rgb_gt", "depth"}
     assert res["steps"] == 8 and res["device"] == "cpu"
     assert set(res) >= {
         "hash_variant", "hash_levels", "hash_feats", "hash_log2t",
@@ -222,3 +240,117 @@ def test_quality_run_tiny_on_cpu(tmp_path, monkeypatch):
             "nn_mean_inv_zone3", "nn_mean_inv_360_zone3",
         }
     assert np.isfinite(res["NeRF"]["nn_mean_zone3"])
+
+
+# ------------------------------------------------ density slice, LiDAR, export
+@pytest.mark.parametrize("heights,tol,threshold", [
+    (1, 0.0, 5.0), (3, 0.05, 5.0), (4, 0.2, 1.0)])
+def test_density_slice_matches_jax(scored, heights, tol, threshold):
+    # 24 x 24 x A probes in chunks of the evaluation's 512 (padded last)
+    kw = dict(res_map=24, height_w=0.5, num_avg_heights=heights,
+              tolerance_w=tol, threshold=threshold)
+    dm, thr = scored.ev.density_slice(scored.model, **kw)
+    dm_j, thr_j = scored.jev.density_slice(scored.jparams, **kw)
+    assert dm.shape == thr.shape == (24, 24) and dm.dtype == dm_j.dtype
+    # float32 densities in another op order (the model tests' tolerance)
+    np.testing.assert_allclose(dm, dm_j, rtol=1e-5)
+    near = np.abs(dm_j - threshold) <= 1e-5 * threshold
+    np.testing.assert_array_equal(thr[~near], thr_j[~near])
+    np.testing.assert_array_equal(thr, (dm >= threshold).astype(np.float32))
+    assert np.ptp(dm) > 0
+
+
+def _lidar_inputs(seed):
+    rng = np.random.default_rng(seed)
+    clouds = [rng.uniform(-2.0, 2.0, (n, 3)) for n in (300, 0, 57, 120)]
+    poses = np.tile(np.eye(3, 4), (4, 1, 1))
+    poses[:, :, 3] = rng.uniform(-0.5, 0.5, (4, 3))
+    heights = rng.uniform(-0.2, 0.2, 4)
+    return clouds, poses, heights
+
+
+@pytest.mark.parametrize("seed,tol", [(0, 0.1), (1, 0.3), (2, 0.0)])
+def test_pack_lidar_scans_matches_jax_exactly(seed, tol):
+    clouds, poses, heights = _lidar_inputs(seed)
+    got = Evaluator.pack_lidar_scans(clouds, poses, heights, tol)
+    want = JEvaluator.pack_lidar_scans(clouds, poses, heights, tol)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)  # NaN in the same places
+
+
+def test_lidar_scored_through_extra_sensor_data_as_jax(scored):
+    # one LiDAR cloud a test image around the scene's GT points, packed and
+    # scored beside the NeRF scan; with fov={} as well (the GT unlimited)
+    gt = scored.ev.scene.c2w(scored.ev._scan_origins(scored.idxs))
+    rng = np.random.default_rng(4)
+    clouds = [o + rng.uniform(-1.0, 1.0, (200, 3)) for o in gt]
+    poses = np.tile(np.eye(3, 4), (len(gt), 1, 1))
+    poses[:, :, 3] = gt
+    packed = Evaluator.pack_lidar_scans(clouds, poses, gt[:, 2], 0.2)
+    for fov in (None, {}):
+        got, _ = scored.ev.evaluate_depth(
+            scored.model, scored.occ, scored.idxs, ("GT", "NeRF", "LiDAR"),
+            fov=fov, extra_sensor_data={"LiDAR": packed})
+        want, _ = scored.jev.evaluate_depth(
+            scored.jparams, scored.jocc, scored.idxs, ("GT", "NeRF", "LiDAR"),
+            fov=fov, extra_sensor_data={"LiDAR": packed})
+        for key in ("nn_mean", "nn_median", "nn_inlier", "nn_mean_inv"):
+            for zone in ("zone1", "zone2", "zone3"):
+                # exact inputs: the LiDAR rows agree bit for bit
+                assert got["LiDAR"][key][zone] == want["LiDAR"][key][zone] or (
+                    np.isnan(got["LiDAR"][key][zone])
+                    and np.isnan(want["LiDAR"][key][zone])), (fov, key, zone)
+                np.testing.assert_allclose(got["NeRF"][key][zone],
+                                           want["NeRF"][key][zone], rtol=1e-4)
+
+
+def test_export_nerf_pointcloud_matches_jax(scored, tmp_path):
+    origins = scored.ev.scene.c2w(scored.ev._scan_origins(scored.idxs))[:2]
+    kw = dict(rays_o_w=origins, num_heights=3, height_range=0.2,
+              min_opacity=0.5)
+    pts = scored.ev.export_nerf_pointcloud(
+        scored.model, scored.occ, save_path=str(tmp_path / "port.pcd"), **kw)
+    pts_j = scored.jev.export_nerf_pointcloud(
+        scored.jparams, scored.jocc, save_path=str(tmp_path / "jax.pcd"), **kw)
+    # the same hits (opacities within 1e-4 of each other, none near the
+    # 0.5 cut), at depths within the scan tests' 1e-4 of the scene's scale
+    assert pts.shape == pts_j.shape and pts.shape[0] > 0
+    np.testing.assert_allclose(pts, pts_j, rtol=0, atol=1e-3)
+    back = load_pcd(str(tmp_path / "port.pcd"))
+    np.testing.assert_array_equal(back, pts.astype(np.float32))
+    np.testing.assert_array_equal(j_load_pcd(str(tmp_path / "port.pcd")), back)
+
+
+# ------------------------------------------------------------------- plots
+def test_plots_need_matplotlib_and_say_so(scored, tmp_path):
+    # where matplotlib is missing, plot=True raises ImportError naming it
+    # before any render
+    with mock.patch.dict(sys.modules, {"matplotlib": None,
+                                       "matplotlib.pyplot": None}), \
+            mock.patch.object(Evaluator, "render_batched") as render:
+        with pytest.raises(ImportError, match="matplotlib"):
+            scored.ev.evaluate(scored.model, scored.occ,
+                               depth_img_idxs=scored.idxs, sensors=SENSORS,
+                               save_dir=str(tmp_path), plot=True)
+        render.assert_not_called()
+    # without a save_dir nothing is plotted, as in the JAX evaluator
+    with mock.patch.dict(sys.modules, {"matplotlib": None}):
+        m = scored.ev.evaluate(scored.model, scored.occ, color_img_idxs=[],
+                               depth_img_idxs=scored.idxs[:1],
+                               sensors=("GT", "NeRF"), plot=True)
+    assert np.isfinite(m["NeRF"]["nn_mean"]["zone3"])
+
+
+def test_evaluate_plot_writes_the_jax_files(scored, tmp_path):
+    pytest.importorskip("matplotlib")
+    scored.ev.evaluate(scored.model, scored.occ, depth_img_idxs=scored.idxs,
+                       sensors=SENSORS, save_dir=str(tmp_path / "port"),
+                       plot=True)
+    scored.jev.evaluate(scored.jparams, scored.jocc,
+                        depth_img_idxs=scored.idxs, sensors=SENSORS,
+                        save_dir=str(tmp_path / "jax"), plot=True)
+    for side in ("port", "jax"):
+        assert (tmp_path / side / "metrics.png").stat().st_size > 0
+    assert sorted(os.listdir(tmp_path / "port" / "maps")) == sorted(
+        os.listdir(tmp_path / "jax" / "maps")) != []

@@ -20,6 +20,7 @@ import torch
 
 from virus_nerf_tpu_torch.configs.config import Config
 from virus_nerf_tpu_torch.data.dataset import Batch
+from virus_nerf_tpu_torch.optimization.parallel_eval import make_population_eval
 from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from virus_nerf_tpu_torch.parallel import (
     dryrun_multichip,
@@ -76,7 +77,6 @@ def jax_dp_run(cfg, world=2, steps=8, seed=1):
     import jax.numpy as jnp
 
     from virus_nerf_tpu.data import make_synthetic_dataset as j_make_dataset
-    from virus_nerf_tpu.data.dataset import sample_batch as j_sample_batch
     from virus_nerf_tpu.parallel import make_dp_train_chunk as j_chunk
     from virus_nerf_tpu.parallel import make_mesh as j_make_mesh
     from virus_nerf_tpu.training import Trainer as JTrainer
@@ -87,13 +87,32 @@ def jax_dp_run(cfg, world=2, steps=8, seed=1):
     js0 = jt.init_state(seed)
     chunk = j_chunk(jt, j_make_mesh(world), chunk_steps=steps)
     js, m = chunk(js0, jds, jnp.float32(0.0))
-    # the draws, replaying the chunk's key chain (trainer.py:373-385, 249-253)
+    draws = jax_dp_draws(cfg, jds, js0.key, world, steps)
+    np_tree = lambda x: jax.tree.map(np.asarray, x)  # noqa: E731
+    return (np.asarray(m["loss"]).tolist(),
+            np.asarray(m["rm_samples"]).tolist(),
+            params_from_jax(np_tree(js0.params), device="cpu"),
+            grid_from_jax(np_tree(js0.grid), device="cpu"), draws,
+            int(js.grid.update_step))
+
+
+def jax_dp_draws(cfg, jds, key, world, steps):
+    """Each device's draws of a JAX data-parallel chunk started from
+    ``key``: its key chain replayed (trainer.py:373-385, 249-253), every
+    split folded with the device's index.  Returns {"occ": {step: [per
+    device (ray batch, NeRF batch, noise)]}, "train": {step: [per device
+    (batch, noise)]}} in the port's types."""
+    import jax
+    import jax.numpy as jnp
+
+    from virus_nerf_tpu.data.dataset import sample_batch as j_sample_batch
+
     og, t = cfg.occ_grid, cfg.training
     b_all = int(og.batch_size * og.batch_ratio_ray_update)
     b_ray = max(1, b_all // world)
     b_nerf = max(1, (og.batch_size - b_all) // world)
     b = t.batch_size // world
-    key, draws = js0.key, {"occ": {}, "train": {}}
+    draws = {"occ": {}, "train": {}}
     for step in range(steps):
         if step % og.update_interval == 0:
             key, k1, k2, k3 = jax.random.split(key, 4)
@@ -117,12 +136,7 @@ def jax_dp_run(cfg, world=2, steps=8, seed=1):
             noise = jax.random.uniform(jax.random.fold_in(kr, idx), (b,))
             draws["train"][step].append(
                 (_port_batch(batch), torch.from_numpy(np.array(noise))))
-    np_tree = lambda x: jax.tree.map(np.asarray, x)  # noqa: E731
-    return (np.asarray(m["loss"]).tolist(),
-            np.asarray(m["rm_samples"]).tolist(),
-            params_from_jax(np_tree(js0.params), device="cpu"),
-            grid_from_jax(np_tree(js0.grid), device="cpu"), draws,
-            int(js.grid.update_step))
+    return draws
 
 
 def _mesh(rank, world, init_method):
@@ -237,6 +251,123 @@ def test_one_rank_is_bit_identical_to_the_plain_trainer(tmp_path):
     assert a.keys() == b.keys()
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+# ------------------------------------------ the 2-D (pop, data) population
+# loss weights (color, rgbd, tof, uss) of four particles
+WEIGHTS = np.array([[1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 8.0, 8.0],
+                    [0.2, 1.0, 1.0, 1.0], [1.0, 1.0, 0.1, 0.1]], np.float32)
+MESH_2X2 = [["cpu", "cpu"], ["cpu", "cpu"]]
+
+
+def jax_mesh_scores(cfg, steps):
+    """The JAX loss-weight evaluator's scores on a 2 x 2 (pop, data) CPU
+    mesh, and per particle seed its initial state in the port's form and
+    each data device's draws."""
+    import jax
+
+    from virus_nerf_tpu.data import make_synthetic_dataset as j_make_dataset
+    from virus_nerf_tpu.optimization.parallel_eval import (
+        make_population_eval as j_weights_eval,
+    )
+    from virus_nerf_tpu.training import Trainer as JTrainer
+    from virus_nerf_tpu_torch.convert import (
+        adam_state_from_jax,
+        grid_from_jax,
+        params_from_jax,
+    )
+
+    jds, jscene, _ = j_make_dataset(**DATA_KW)
+    jt = JTrainer(cfg, jds, scene=jscene)
+    devs = np.array(jax.devices("cpu")[:4]).reshape(2, 2)
+    mesh = jax.sharding.Mesh(devs, ("pop", "data"))
+    scores = j_weights_eval(jt, jds, steps=steps, mesh=mesh)(WEIGHTS)
+    np_tree = lambda x: jax.tree.map(np.asarray, x)  # noqa: E731
+    inits, draws = {}, {}
+    for seed in range(len(WEIGHTS)):
+        js = jt.init_state(seed)
+        inits[seed] = (params_from_jax(np_tree(js.params), device="cpu"),
+                       adam_state_from_jax(np_tree(js.opt_state), device="cpu"),
+                       grid_from_jax(np_tree(js.grid), device="cpu"))
+        draws[seed] = jax_dp_draws(cfg, jds, js.key, 2, steps)
+    return np.asarray(scores), inits, draws
+
+
+def _mesh2d_rank(rank, world, init_method, cfg, inits, draws, steps, calls):
+    """A rank of the 2 x 2 nesting (spawned): its trainer takes each
+    particle seed's JAX initial state and its data device's JAX draws,
+    then the port's 2-D evaluator runs each call's positions."""
+    torch.set_num_threads(1)
+    _mesh(rank, world, init_method)
+    ds, scene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
+    tr = Trainer(cfg, ds, scene=scene, device="cpu")
+    seed_of, data_i = {}, rank % 2
+
+    def init_state(seed=None):
+        st = Trainer.init_state(tr, seed)
+        params, (count, mu, nu), grid = inits[seed]
+        st.model.load_state_dict(params)
+        st.optimizer.load_moments(st.model.named_parameters(), count, mu, nu)
+        st.grid = grid
+        seed_of[id(st)] = seed
+        return st
+
+    def grid_update(state, elapse_time=None, group=None):
+        own = draws[seed_of[id(state)]]["occ"][state.step][data_i]
+        tr.grid_update_on(state, *own, group)
+
+    def train_step(state, elapse_time=None, group=None):
+        own = draws[seed_of[id(state)]]["train"][state.step][data_i]
+        return tr.train_step_on(state, *own, group)
+
+    tr.init_state, tr.grid_update, tr.train_step = (
+        init_state, grid_update, train_step)
+    be = make_population_eval(tr, steps=steps, devices=MESH_2X2)
+    return [be(positions).tolist() for positions in calls]
+
+
+def test_four_gloo_ranks_match_the_jax_pop_data_mesh(tmp_path):
+    # 4 particles on a 2 x 2 (pop, data) nesting, 8 steps crossing the
+    # grid updates at steps 0 and 4, each particle data-parallel over its
+    # row's two ranks; then 3 particles (padded to 4 by repeating the
+    # last, as the JAX function does)
+    cfg = dp_config()
+    want, inits, draws = jax_mesh_scores(cfg, 8)
+    results = spawn_ranks(_mesh2d_rank, 4,
+                          args=(cfg, inits, draws, 8, [WEIGHTS, WEIGHTS[:3]]),
+                          timeout=TIMEOUT, store_dir=str(tmp_path))
+    full, part = results[0]
+    # every rank gets every score back, in particle order
+    assert all(r == results[0] for r in results)
+    assert len(full) == 4 and len(part) == 3 and np.all(np.isfinite(full))
+    # the mean of the last 8 losses: float32 in another op order on each
+    # side, the tolerance of the two-rank test above
+    np.testing.assert_allclose(full, want, rtol=1e-5)
+    # a particle's run depends on its weights and seed alone
+    assert part == full[:3]
+    assert full[1] > full[3]  # up-weighted depth sensors raise the loss
+
+
+def test_a_pop_data_nesting_needs_its_process_group(tmp_path):
+    ds, scene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
+    tr = Trainer(dp_config(), ds, scene=scene, device="cpu")
+    with pytest.raises(ValueError, match="process group of 4 ranks"):
+        make_population_eval(tr, devices=MESH_2X2)
+    with pytest.raises(ValueError, match="rows of one length"):
+        make_population_eval(tr, devices=[["cpu", "cpu"], ["cpu"]])
+    mesh = make_mesh(1, rank=0, device="cpu",
+                     init_method=f"file://{tmp_path / 'store'}",
+                     timeout=timedelta(seconds=TIMEOUT))
+    try:
+        # (1, 1) on one rank: the 1-D evaluator's scores bit for bit
+        be = make_population_eval(tr, steps=4, devices=[["cpu"]], score_tail=2)
+        want = make_population_eval(tr, steps=4, score_tail=2)(WEIGHTS[:2])
+        np.testing.assert_array_equal(be(WEIGHTS[:2]), want)
+        with pytest.raises(ValueError, match="positions"):
+            be(WEIGHTS[:, :3])
+    finally:
+        torch.distributed.destroy_process_group()
+    assert mesh.world == 1
 
 
 def test_dryrun_multichip_two_ranks():

@@ -245,5 +245,7 @@ def test_weights_eval_pads_to_the_devices_and_refuses_bad_shapes(data):
         be(WEIGHTS[:, :3])
     with pytest.raises(ValueError, match="positions"):
         be(WEIGHTS[0])
-    with pytest.raises(NotImplementedError, match="pop, data"):
+    # a 2-D (pop, data) nesting needs a process group of pop * data ranks
+    # (tests/test_torch_parallel.py runs one on four gloo ranks)
+    with pytest.raises(ValueError, match="process group"):
         make_population_eval(pt, devices=[["cpu", "cpu"], ["cpu", "cpu"]])

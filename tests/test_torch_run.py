@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -476,12 +477,19 @@ def test_run_ablation_skips_a_done_seed(fixture_dir, tmp_path):
 
 def test_refusals(data, tmp_path):
     _, cfg, _, ((pds, pscene, _), (ptest, _, info)) = data
-    with pytest.raises(NotImplementedError, match="plots"):
-        run.train_and_evaluate(cfg, plot=True, device="cpu")
+    # the plots need matplotlib: where it is missing, ImportError naming
+    # it, before the run loads or trains anything
     c = run_config(Config(), cfg.ethz.dataset_dir)
     c.evaluation.plot_results = True
-    with pytest.raises(NotImplementedError, match="plots"):
-        run.train_and_evaluate(c, device="cpu")
+    with mock.patch.dict(sys.modules, {"matplotlib": None}), \
+            mock.patch.object(run, "make_dataset") as load:
+        with pytest.raises(ImportError, match="matplotlib"):
+            run.train_and_evaluate(cfg, plot=True, save_dir=str(tmp_path / "a"),
+                                   device="cpu")
+        with pytest.raises(ImportError, match="matplotlib"):
+            run.train_and_evaluate(c, save_dir=str(tmp_path / "b"),
+                                   device="cpu")
+        load.assert_not_called()
     # RH2 loads (tests/test_torch_rh.py); a directory without its files
     # needs the external robotathome package
     c = run_config(Config(), cfg.ethz.dataset_dir)
@@ -490,8 +498,28 @@ def test_refusals(data, tmp_path):
         run.train_and_evaluate(c, device="cpu")
     ev = Evaluator(cfg, ptest, pscene, img_wh=info["img_wh"], device="cpu")
     model = Trainer(cfg, pds, scene=pscene, device="cpu").init_state().model
-    with pytest.raises(NotImplementedError, match="plots"):
-        ev.evaluate(model, torch.ones(1, 32**3, dtype=torch.bool), plot=True)
+    with mock.patch.dict(sys.modules, {"matplotlib": None}):
+        with pytest.raises(ImportError, match="matplotlib"):
+            ev.evaluate(model, torch.ones(1, 32**3, dtype=torch.bool),
+                        save_dir=str(tmp_path / "c"), plot=True)
+
+
+def test_run_plots_write_the_jax_files(data, tmp_path):
+    # evaluation.plot_results: the JAX run's plot files (run.py:69-110,
+    # evaluator.py plots): the per-image maps, the NND summary, the
+    # training curves and the occupancy-grid slice after the bitfield's
+    # refresh and round-trip check
+    pytest.importorskip("matplotlib")
+    _, cfg, _, pdata = data
+    save = tmp_path / "run"
+    metrics = run.train_and_evaluate(cfg, datasets=pdata, save_dir=str(save),
+                                     plot=True, device="cpu")
+    assert math.isfinite(metrics["NeRF"]["nn_mean"]["zone3"])
+    for name in ("metrics.png", "curves.png", "occgrids/occgrid.png"):
+        assert (save / name).stat().st_size > 0, name
+    n = min(cfg.evaluation.num_plot_pts, pdata[1][0].n_images)
+    assert len(os.listdir(save / "maps")) == n
+    check_run_dir(str(save), 2)
 
 
 def test_run_without_device_flag_raises_without_a_card(tmp_path):

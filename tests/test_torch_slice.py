@@ -324,6 +324,14 @@ for dtype, routes in RUNS:
     losses = trainer.logs["loss"]
     assert state.step == 8 and len(losses) == 8, (dtype, routes, losses)
     assert all(l == l for l in losses), (dtype, routes, losses)
+# every module of the port imports without jax (the plots, analysis,
+# deployment and logging modules too)
+import importlib, pkgutil
+import virus_nerf_tpu_torch
+for mod in pkgutil.walk_packages(virus_nerf_tpu_torch.__path__,
+                                 "virus_nerf_tpu_torch."):
+    importlib.import_module(mod.name)
+assert "virus_nerf_tpu_torch.analysis.uss_experiments" in sys.modules
 assert "jax" not in sys.modules, "the port imported jax"
 jax_pkg = [m for m in sys.modules
            if m == "virus_nerf_tpu" or m.startswith("virus_nerf_tpu.")]

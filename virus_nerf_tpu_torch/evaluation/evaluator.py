@@ -16,10 +16,13 @@ render is the JAX package's numpy code, on the host.  Where the JAX methods
 take the parameters (``params``), these take the model that holds them.
 ``evaluate(save_dir=...)`` writes ``metrics.csv`` and the colour renders
 (``renders/{rgb,rgb_gt,depth}_###.png``, with the port's PNG writer and
-turbo table).
-
-Not ported yet: the plots (``plot=True`` raises; ROADMAP, Queue A item 7),
-``density_slice``, ``pack_lidar_scans`` and the NeRF point-cloud export.
+turbo table); with ``plot=True`` also the per-image scan maps
+(``maps/map{i}.png``) and the NND summary (``metrics.png``) through
+``evaluation/plots.py``, which needs matplotlib (ImportError naming it
+where it is missing).  ``density_slice`` probes the model's density on a
+horizontal slice, ``pack_lidar_scans`` packs LiDAR clouds for
+``evaluate_depth(extra_sensor_data=...)`` and ``export_nerf_pointcloud``
+writes the NeRF's scans at several heights as a PCD.
 """
 
 from __future__ import annotations
@@ -33,13 +36,19 @@ import torch
 
 from virus_nerf_tpu_torch.configs.config import Config
 from virus_nerf_tpu_torch.data.dataset import DeviceDataset
+from virus_nerf_tpu_torch.data.pcl import save_pcd
 from virus_nerf_tpu_torch.data.png import write_png
 from virus_nerf_tpu_torch.data.scene import Scene
 from virus_nerf_tpu_torch.evaluation import metrics as M
-from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays, limit_fov
+from virus_nerf_tpu_torch.evaluation.geometry import (
+    create_scan_pos,
+    create_scan_rays,
+    limit_fov,
+)
 from virus_nerf_tpu_torch.models.ngp import NGPModel
 from virus_nerf_tpu_torch.models.renderer import render_rays
-from virus_nerf_tpu_torch.utils.helpers import turbo
+from virus_nerf_tpu_torch.utils.deployment import density_in_chunks
+from virus_nerf_tpu_torch.utils.helpers import require_matplotlib, turbo
 
 
 def _sync_idxs(times: np.ndarray, sids: np.ndarray, img_idxs,
@@ -176,6 +185,42 @@ class Evaluator:
             dn = np.clip(depths[j] / d_max, 0.0, 1.0)
             write_png(os.path.join(save_dir, f"depth_{i:03d}.png"),
                       (turbo(dn) * 255).astype(np.uint8))
+
+    # --------------------------------------------------------- density slice
+    def density_slice(
+        self,
+        model: NGPModel,
+        res_map: int,
+        height_w: float,
+        num_avg_heights: int = 1,
+        tolerance_w: float = 0.0,
+        threshold: float = 10.0,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Horizontal density-map slice and its thresholded binarization
+        (reference: training/trainer_base.py:92-140 ``interfereDensityMap``).
+
+        Probes ``model.density`` on an L x L x A cube-coordinate grid
+        around the world height ``height_w`` (+- ``tolerance_w``), in
+        chunks of ``evaluation.batch_size`` on the model's device, takes
+        the nanmax over the A heights, and thresholds.
+
+        Returns:
+            (density_map (L, L), density_map_thr (L, L)) numpy arrays.
+        """
+        height_c = float(
+            self.scene.w2c(np.array([[0.0, 0.0, height_w]]))[0, 2]
+        )
+        tol_c = float(self.scene.w2c(tolerance_w, only_scale=True))
+        pos = create_scan_pos(
+            res_map=res_map,
+            height_c=height_c,
+            num_avg_heights=num_avg_heights,
+            tolerance_c=tol_c,
+        )  # (L*L*A, 3)
+        density = density_in_chunks(model, pos, self.cfg.evaluation.batch_size)
+        density = density.reshape(res_map, res_map, num_avg_heights)
+        density_map = np.nanmax(density, axis=2)
+        return density_map, (density_map >= threshold).astype(np.float32)
 
     # -------------------------------------------------------- robot pose/FoV
     def get_robot_pose_2d(
@@ -320,6 +365,51 @@ class Evaluator:
             depths_p.reshape(-1),
         )
 
+    @staticmethod
+    def pack_lidar_scans(
+        xyzs,
+        poses_w: np.ndarray,
+        scan_heights: np.ndarray,
+        height_tolerance: float,
+    ):
+        """Per-image LiDAR clouds -> NaN-packed (rays_o, rays_d, depths)
+        within the scan height band (reference: training/trainer.py:631-679).
+
+        Args:
+            xyzs: list of N (M_i, 3) world clouds (e.g. from
+                ``data.ethz.load_lidar_maps``).
+            poses_w: (N, 3, 4) LiDAR poses in world coordinates.
+            scan_heights: (N,) world z of the camera scan plane.
+        """
+        N = len(xyzs)
+        sliced = []
+        K = 1
+        for i, xyz in enumerate(xyzs):
+            lo = scan_heights[i] - height_tolerance
+            hi = scan_heights[i] + height_tolerance
+            sel = xyz[(xyz[:, 2] >= lo) & (xyz[:, 2] <= hi)]
+            sliced.append(sel)
+            K = max(K, sel.shape[0])
+        rays_o = np.full((N, K, 3), np.nan)
+        rays_d = np.full((N, K, 3), np.nan)
+        depths = np.full((N, K), np.nan)
+        for i, sel in enumerate(sliced):
+            k = sel.shape[0]
+            if k == 0:
+                continue
+            origin = poses_w[i, :3, 3]
+            scan_o = np.array([origin[0], origin[1], scan_heights[i]])
+            diff = sel - origin
+            dist = np.linalg.norm(diff, axis=1)
+            rays_o[i, :k] = scan_o
+            rays_d[i, :k] = diff / dist[:, None]
+            depths[i, :k] = dist
+        return (
+            rays_o.reshape(-1, 3),
+            rays_d.reshape(-1, 3),
+            depths.reshape(-1),
+        )
+
     # ----------------------------------------------------------- depth eval
     def evaluate_depth(
         self,
@@ -327,15 +417,26 @@ class Evaluator:
         occ_bool,
         img_idxs: np.ndarray,
         sensors: Iterable[str] = ("GT", "NeRF"),
+        fov: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
+        robot_pos: Optional[Dict[str, np.ndarray]] = None,
+        extra_sensor_data: Optional[Dict[str, tuple]] = None,
     ):
         """Depth evaluation over sensors (reference: training/trainer.py:374-490).
 
         Args:
             img_idxs: (N,) test image indices.
-            sensors: subset of {GT, NeRF, USS, ToF, RGBD}; GT is mandatory and
-                evaluated first.  With ``img_wh`` the GT each sensor is held
-                against is limited to its per-image field of view
-                (``get_field_of_view``, training/trainer.py:401-434).
+            sensors: subset of {GT, NeRF, USS, ToF, RGBD} and the keys of
+                ``extra_sensor_data``; GT is mandatory and evaluated first.
+            fov: sensor -> {camera: (N, 2) angular ranges}.  By default,
+                with ``img_wh``, the per-image robot FoV
+                (``get_field_of_view``), so the ``nn``/``nn_inv``
+                directions compare against FoV-limited GT as in the
+                reference (training/trainer.py:401-434); ``fov={}``
+                disables it.
+            robot_pos: camera -> (N, 2) positions for ``fov`` (default:
+                ``get_field_of_view``'s).
+            extra_sensor_data: sensor -> precomputed world (rays_o, rays_d,
+                depths), e.g. LiDAR scans from ``pack_lidar_scans``.
         Returns:
             (metrics_dict, data_dict) keyed by sensor.
         """
@@ -344,9 +445,10 @@ class Evaluator:
         ev = self.cfg.evaluation
         zones = {k: tuple(v) for k, v in ev.zones.items()}
 
-        fov = robot_pos = None
-        if self.img_wh is not None:
-            fov, robot_pos, _ = self.get_field_of_view(img_idxs)
+        if fov is None and self.img_wh is not None:
+            fov, fov_robot_pos, _ = self.get_field_of_view(img_idxs)
+            if robot_pos is None:
+                robot_pos = fov_robot_pos
 
         metrics_dict: Dict[str, dict] = {}
         data_dict: Dict[str, dict] = {}
@@ -359,6 +461,8 @@ class Evaluator:
                 rays_o, rays_d, depths = self._get_nerf_data(
                     model, occ_bool, img_idxs
                 )
+            elif extra_sensor_data is not None and sensor in extra_sensor_data:
+                rays_o, rays_d, depths = extra_sensor_data[sensor]
             else:
                 rays_o, rays_d, depths = self._get_sensor_data(img_idxs, sensor)
 
@@ -371,7 +475,7 @@ class Evaluator:
                 }
                 continue
 
-            if fov is not None and sensor in fov:
+            if fov is not None and sensor in fov and robot_pos is not None:
                 pos_gt, pos_o_gt = limit_fov(
                     data_dict["GT"]["pos"], data_dict["GT"]["pos_o"],
                     fov[sensor], N, robot_pos,
@@ -417,14 +521,15 @@ class Evaluator:
         plot: bool = False,
     ) -> Dict[str, dict]:
         """Colour and depth evaluation (reference: training/trainer.py:
-        167-224); every sensor's metrics carry the colour PSNR/SSIM.  With
-        ``save_dir``: ``metrics.csv`` and ``renders/``.  ``plot`` is not
-        ported (NotImplementedError)."""
-        if plot:
-            raise NotImplementedError(
-                "virus_nerf_tpu_torch Evaluator: plots are not ported yet "
-                "(ROADMAP, Queue A item 7: evaluation/plots.py)"
-            )
+        167-224, 868-906); every sensor's metrics carry the colour
+        PSNR/SSIM.  With ``save_dir``: ``metrics.csv`` and ``renders/``,
+        and with ``plot`` the per-image scan maps and NND histograms
+        (``maps/map{i}.png``) and the 9-panel NND summary
+        (``metrics.png``, trainer_plot.py:156-394).  ``plot`` with a
+        ``save_dir`` needs matplotlib: without it, ImportError before any
+        render."""
+        if plot and save_dir:
+            require_matplotlib()
         ev = self.cfg.evaluation
         n = self.n_images
         if color_img_idxs is None:
@@ -448,7 +553,7 @@ class Evaluator:
                 model, occ_bool, color_img_idxs,
                 save_dir=os.path.join(save_dir, "renders") if save_dir else None,
             )
-        metrics_dict, _ = self.evaluate_depth(
+        metrics_dict, data_dict = self.evaluate_depth(
             model, occ_bool, depth_img_idxs, sensors
         )
         for key in metrics_dict:
@@ -457,7 +562,74 @@ class Evaluator:
         if save_dir:
             self.save_metrics_csv(metrics_dict,
                                   os.path.join(save_dir, "metrics.csv"))
+            if plot:
+                self._plot_depth(save_dir, data_dict, metrics_dict,
+                                 depth_img_idxs)
         return metrics_dict
+
+    def _plot_depth(self, save_dir, data_dict, metrics_dict, depth_img_idxs):
+        """``maps/map{i}.png`` and ``metrics.png`` (the JAX ``evaluate``'s
+        plot block, evaluator.py:586-611)."""
+        from virus_nerf_tpu_torch.evaluation.plots import (
+            plot_maps_per_image,
+            plot_nnd_summary,
+        )
+
+        ev = self.cfg.evaluation
+        robot = None
+        if self.img_wh is not None:
+            pos, orientation = self.get_robot_pose_2d(depth_img_idxs)
+            robot = {"pos": pos, "orientation": orientation}
+        plot_maps_per_image(
+            self.scene, data_dict, metrics_dict,
+            sensors=list(metrics_dict.keys()),
+            num_points=len(np.asarray(depth_img_idxs)),
+            res_map=ev.res_map,
+            height_tolerance=ev.height_tolerance,
+            save_dir=os.path.join(save_dir, "maps"),
+            num_plot_pts=int(ev.num_plot_pts),
+            robot=robot,
+        )
+        plot_nnd_summary(
+            metrics_dict,
+            zones=tuple(ev.zones.keys()),
+            path=os.path.join(save_dir, "metrics.png"),
+            zone_ranges=ev.zones,
+        )
+
+    def export_nerf_pointcloud(
+        self,
+        model: NGPModel,
+        occ_bool,
+        rays_o_w: np.ndarray,
+        save_path: str,
+        num_heights: int = 2,
+        height_range: float = 0.3,
+        min_opacity: float = 0.5,
+    ) -> np.ndarray:
+        """Render 360-degree scans at several heights and export the hit
+        points as a PCD point cloud (reference: training/trainer.py:908-1003).
+
+        Args:
+            rays_o_w: (N, 3) world scan origins; z is replaced by
+                ``num_heights`` values spanning +-height_range.
+        Returns:
+            the (M, 3) world point cloud that was written.
+        """
+        ev = self.cfg.evaluation
+        o = np.tile(
+            np.asarray(rays_o_w, np.float64)[:, None, :], (1, num_heights, 1)
+        )
+        o[:, :, 2] = np.linspace(-height_range, height_range, num_heights)
+        o = self.scene.w2c(o.reshape(-1, 3))
+        rays_o, rays_d = create_scan_rays(o, ev.res_angular)
+        out = self.render_batched(model, occ_bool, rays_o, rays_d)
+        depths_w = self.scene.c2w(out["depth"], only_scale=True)
+        rays_o_world = self.scene.c2w(rays_o)
+        pts = rays_o_world + rays_d * depths_w[:, None]
+        pts = pts[out["opacity"] > min_opacity]
+        save_pcd(save_path, pts.astype(np.float32))
+        return pts
 
     @staticmethod
     def save_metrics_csv(metrics_dict: Dict[str, dict], path: str) -> None:

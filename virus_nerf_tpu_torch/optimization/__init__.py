@@ -3,9 +3,10 @@
 Counterpart of ``virus_nerf_tpu/optimization/`` (reference:
 optimization/particle_swarm_optimization.py,
 particle_swarm_optimization_wrapper.py, metric.py, run_optimization.py):
-the swarm, its search space, the synthetic objectives, the runners and
+the swarm, its search space, the synthetic objectives, the runners,
 ``parallel_eval`` (the loss weights of a swarm's particles trained
-together).  The JAX package's PSO plots (matplotlib) are not ported.
+together) and the PSO plots (``plots``: matplotlib, imported when a plot
+is drawn).
 """
 
 from virus_nerf_tpu_torch.optimization.metric import SyntheticMetric  # noqa: F401
@@ -17,6 +18,19 @@ from virus_nerf_tpu_torch.optimization.pso import (  # noqa: F401
     ParticleSwarmOptimization,
     PSOState,
     PSOWrapper,
+)
+from virus_nerf_tpu_torch.optimization.plots import (  # noqa: F401
+    load_history,
+    plot_all,
+    plot_convergence,
+    plot_hparam_scores,
+    plot_hparam_trajectories,
+    plot_metric_landscape,
+    plot_pso_results,
+    summarize_pso,
+)
+from virus_nerf_tpu_torch.optimization.parallel_eval import (  # noqa: F401
+    make_population_eval,
 )
 from virus_nerf_tpu_torch.optimization.runner import (  # noqa: F401
     apply_hparams,

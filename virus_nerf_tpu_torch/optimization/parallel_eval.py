@@ -13,9 +13,15 @@ devices: the particles are split over them in contiguous blocks, and the
 host runs step k of every particle before step k+1 of any, so each card
 works through its queue while the host launches the others'.
 
+A 2-D nesting of devices, ``(pop, data)``, is the JAX 2-D mesh
+(parallel_eval.py:101-119): one process a device, joined in a
+``torch.distributed`` group (``parallel.make_mesh``), rank ``r`` at
+``devices[r // data][r % data]``.  The particles are split over the pop
+rows in contiguous blocks, and each particle's run is data-parallel over
+its row's ranks (``parallel.make_dp_train_chunk`` on a sub-group a row);
+every rank gets every score back, in particle order.
+
 Feed the returned callable to ``run_optimization(..., batch_eval=...)``.
-The 2-D ``(pop, data)`` mesh, each particle itself data-parallel
-(parallel_eval.py:121-139), is not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from virus_nerf_tpu_torch.data.dataset import dataset_to
 
@@ -53,8 +60,12 @@ def make_population_eval(
             here).
         steps: train steps a particle an evaluation.
         devices: the devices the particles are split over (default: the
-            trainer's).  A 2-D nesting, ``(pop, data)``, raises
-            NotImplementedError.
+            trainer's).  A 2-D nesting ``(pop, data)`` (a list of pop rows
+            of data devices) runs each particle data-parallel over its
+            row: every rank of an initialized process group of
+            ``pop * data`` ranks calls this with the same nesting and its
+            own trainer, on ``devices[rank // data][rank % data]``, and
+            then the returned callable with the same positions.
         weight_fields: LossWeights fields taken from position columns.
         score_key: the per-step metric averaged ("loss", "loss_depth", ...).
         score_tail: how many trailing steps the score averages.
@@ -64,15 +75,25 @@ def make_population_eval(
     if devices is None:
         devices = [trainer.device]
     devices = list(devices)
-    if any(isinstance(d, (list, tuple, np.ndarray)) for d in devices):
-        raise NotImplementedError(
-            "the 2-D (pop, data) mesh of the JAX parallel_eval "
-            "(parallel_eval.py:121-139: each particle data-parallel over "
-            "the data axis) is not ported; pass a flat list of devices"
-        )
-    devices = [_full_device(d) for d in devices]
     n_fields = len(weight_fields)
     base_weights = trainer.loss_weights
+
+    def check_positions(positions) -> np.ndarray:
+        positions = np.asarray(positions, np.float32)
+        if positions.ndim != 2 or positions.shape[1] < n_fields:
+            raise ValueError(
+                f"positions must be (N, >={n_fields}), got {positions.shape}"
+            )
+        return positions
+
+    def weights_of(pos):
+        return base_weights._replace(
+            **{f: float(pos[j]) for j, f in enumerate(weight_fields)})
+
+    if any(isinstance(d, (list, tuple, np.ndarray)) for d in devices):
+        return _mesh_eval(trainer, devices, steps, check_positions,
+                          weights_of, score_key, score_tail)
+    devices = [_full_device(d) for d in devices]
     routes = dict(hash_forward=trainer.model_kwargs["hash_forward"],
                   hash_backward=trainer.model_kwargs["hash_backward"])
     trainers = {}
@@ -85,24 +106,14 @@ def make_population_eval(
         return trainers[dev]
 
     def batch_eval(positions: np.ndarray) -> np.ndarray:
-        positions = np.asarray(positions, np.float32)
-        if positions.ndim != 2 or positions.shape[1] < n_fields:
-            raise ValueError(
-                f"positions must be (N, >={n_fields}), got {positions.shape}"
-            )
+        positions = check_positions(positions)
         n = positions.shape[0]
-        pad = (-n) % len(devices)
-        if pad:
-            positions = np.concatenate(
-                [positions, np.repeat(positions[-1:], pad, axis=0)]
-            )
+        positions = _pad(positions, len(devices))
         per_dev = positions.shape[0] // len(devices)
         parts = []
         for i, pos in enumerate(positions):
             tr = trainer_on(devices[i // per_dev])
-            weights = base_weights._replace(
-                **{f: float(pos[j]) for j, f in enumerate(weight_fields)})
-            parts.append(dict(trainer=tr, weights=weights,
+            parts.append(dict(trainer=tr, weights=weights_of(pos),
                               state=tr.init_state(seed=i), values=[]))
         for _ in range(steps):
             for p in parts:
@@ -117,5 +128,75 @@ def make_population_eval(
         scores = [float(torch.stack(p["values"][-tail:]).float().mean())
                   for p in parts]
         return np.asarray(scores[:n], np.float64)
+
+    return batch_eval
+
+
+def _pad(positions: np.ndarray, n_blocks: int) -> np.ndarray:
+    """Positions padded to a multiple of ``n_blocks`` rows by repeating the
+    last one (the JAX function's padding)."""
+    pad = (-positions.shape[0]) % n_blocks
+    if pad:
+        positions = np.concatenate(
+            [positions, np.repeat(positions[-1:], pad, axis=0)]
+        )
+    return positions
+
+
+def _mesh_eval(trainer, devices, steps, check_positions, weights_of,
+               score_key, score_tail):
+    """The ``batch_eval`` of a 2-D ``(pop, data)`` nesting on this rank."""
+    from virus_nerf_tpu_torch.parallel.data_parallel import (
+        Mesh,
+        make_dp_train_chunk,
+    )
+    from virus_nerf_tpu_torch.training.trainer import _full_device
+
+    rows = [list(r) for r in devices]
+    n_pop, n_data = len(rows), len(rows[0])
+    if n_data == 0 or any(len(r) != n_data for r in rows):
+        raise ValueError(f"a (pop, data) nesting needs rows of one length, "
+                         f"got {[len(r) for r in rows]}")
+    if not dist.is_initialized() or dist.get_world_size() != n_pop * n_data:
+        raise ValueError(
+            f"a ({n_pop}, {n_data}) nesting needs a process group of "
+            f"{n_pop * n_data} ranks (parallel.make_mesh), one a device"
+        )
+    rank = dist.get_rank()
+    pop_i, data_i = divmod(rank, n_data)
+    if _full_device(rows[pop_i][data_i]) != trainer.device:
+        raise ValueError(f"rank {rank} sits at {rows[pop_i][data_i]} of the "
+                         f"nesting; its trainer is on {trainer.device}")
+    # every rank creates every row's group, in row order: new_group is a
+    # collective of the whole group, and NCCL pairs groups by creation order
+    groups = [dist.new_group([p * n_data + j for j in range(n_data)])
+              for p in range(n_pop)]
+    row = Mesh(group=groups[pop_i], rank=data_i, world=n_data,
+               device=trainer.device, backend=dist.get_backend())
+    chunk = make_dp_train_chunk(trainer, row, steps)
+    base_weights = trainer.loss_weights
+    tail = min(score_tail, steps)
+
+    def batch_eval(positions: np.ndarray) -> np.ndarray:
+        positions = check_positions(positions)
+        n = positions.shape[0]
+        positions = _pad(positions, n_pop)
+        per_row = positions.shape[0] // n_pop
+        mine = range(pop_i * per_row, (pop_i + 1) * per_row)
+        scores = []
+        for i in mine:
+            trainer.loss_weights = weights_of(positions[i])
+            try:
+                m = chunk(trainer.init_state(seed=i), 0.0)
+            finally:
+                trainer.loss_weights = base_weights
+            scores.append(m[score_key][-tail:].float().mean())
+        local = torch.stack(scores).double()
+        gathered = [torch.empty_like(local) for _ in range(n_pop * n_data)]
+        dist.all_gather(gathered, local)
+        # the data ranks of a row hold the same scores: row p's from its
+        # first rank
+        out = torch.cat([gathered[p * n_data] for p in range(n_pop)])
+        return out.cpu().numpy()[:n]
 
     return batch_eval

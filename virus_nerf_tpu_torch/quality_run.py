@@ -16,10 +16,13 @@ NND of the NeRF, ToF and USS scans on the held-out images (reference score:
 run_optimization.py:123-125, mean NND of the NeRF scan, zone 3).  It runs
 on ``--device`` (default ``cuda``; without a card it fails).
 
-Differences from the JAX tool: ``--save-renders`` (image export) is not
-ported and is refused; ``--force-full-hier`` changes nothing, since the
-port's march always probes every candidate (the uncompacted path that flag
-forces in JAX) and is only recorded in the JSON.  The JSON goes to
+``--save-renders DIR`` writes the evaluation's ``metrics.csv`` and colour
+renders into DIR (``DIR/renders/``), and with ``--eval-occ both`` the
+all-ones renders into ``DIR/renders_ones/``, as the JAX tool does
+(tools/quality_run.py:185-193).  One difference from the JAX tool:
+``--force-full-hier`` changes nothing, since the port's march always
+probes every candidate (the uncompacted path that flag forces in JAX) and
+is only recorded in the JSON.  The JSON goes to
 ``--out`` (default ``results/quality.json`` under the repository root).
 """
 
@@ -122,7 +125,7 @@ def parse_args(argv=None):
     p.add_argument("--hash-log2t", type=int, default=19)
     p.add_argument("--seed", type=int, default=21)
     p.add_argument("--save-renders", default=None, metavar="DIR",
-                   help="not ported: refused")
+                   help="write metrics.csv and the test renders into DIR")
     p.add_argument("--eval-occ", default="grid",
                    choices=["grid", "ones", "both"],
                    help="occupancy for the test renders: the trained grid, "
@@ -135,10 +138,7 @@ def parse_args(argv=None):
                    help="train in STEPS-sized segments and record (step, "
                         "train seconds, NeRF nn_mean zone3) after each")
     p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
-    if args.save_renders is not None:
-        p.error("--save-renders: render export is not ported yet")
-    return args
+    return p.parse_args(argv)
 
 
 def _sync(device: torch.device) -> None:
@@ -195,11 +195,14 @@ def run(args):
     metrics = ev.evaluate(
         state.model, torch.ones_like(occ) if args.eval_occ == "ones" else occ,
         depth_img_idxs=test_idxs, sensors=("GT", "NeRF", "ToF", "USS"),
+        save_dir=args.save_renders,
     )
     color_ones = None
     if args.eval_occ == "both":
+        save_ones = (os.path.join(args.save_renders, "renders_ones")
+                     if args.save_renders else None)
         color_ones = ev.evaluate_color(state.model, torch.ones_like(occ),
-                                       test_idxs)
+                                       test_idxs, save_dir=save_ones)
     eval_s = time.time() - tic
 
     out = {

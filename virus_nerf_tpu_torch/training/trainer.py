@@ -40,6 +40,8 @@ grid's warm-up runs step by step, as the JAX loop's ``_train_stepwise``
 or after ``ngp_grid.warmup_steps``, one row a step, scored after the steps
 whose index is a multiple of ``eval_every_n_steps``, ``max_time`` checked
 after every step.
+It logs through ``utils.logging.make_logger`` as the JAX trainer does (a
+coloured stream, and ``<save_dir>/log.txt`` when ``cfg.save_dir`` is set).
 ``save_logs`` writes the JAX package's ``logs.csv``; ``save_checkpoint`` /
 ``load_checkpoint`` keep the whole ``TrainState`` in one ``.npz``.
 
@@ -53,7 +55,6 @@ from __future__ import annotations
 
 import csv
 import json
-import logging
 import math
 import os
 import time
@@ -95,8 +96,7 @@ from virus_nerf_tpu_torch.utils.distributed import (
     reduce_metrics,
     world_size,
 )
-
-logger = logging.getLogger("virus_nerf_tpu_torch")
+from virus_nerf_tpu_torch.utils.logging import make_logger
 
 METRIC_KEYS = (
     "loss", "loss_color", "loss_USS", "loss_ToF", "loss_rgbd",
@@ -172,6 +172,7 @@ class Trainer:
         size, which the evaluator's field-of-view limits need."""
         _check_supported(cfg)
         self.cfg = cfg
+        self.logger = make_logger(cfg)
         self.device = _full_device(
             train_dataset.device if device is None else device
         )
@@ -479,7 +480,17 @@ class Trainer:
         cfg = self.cfg
         if state is None:
             state = self.init_state()
+        self.logger.info("----- START TRAINING -----")
         tic = time.time()
+        self._train_loop(state, tic)
+        self.logger.info(
+            f"----- FINISHED TRAINING ----- {time.time() - tic:.2f}s, "
+            f"iter: {state.step}"
+        )
+        return state
+
+    def _train_loop(self, state: TrainState, tic: float) -> None:
+        cfg = self.cfg
         if cfg.model.grid_type == "ngp":
             # trainer.py:536-547: step by step up to the first interval
             # multiple at or after the warm-up's end
@@ -487,13 +498,12 @@ class Trainer:
             w = cfg.ngp_grid.warmup_steps
             switch = min(cfg.training.max_steps, -(-w // interval) * interval)
             if not self._train_stepwise(state, tic, switch):
-                return state
+                return
         self._train_chunks(state, tic)
-        return state
 
     def _over_time(self, tic: float, step: int) -> bool:
         if time.time() - tic > self.cfg.training.max_time:
-            logger.info("max_time reached at step %d", step)
+            self.logger.info(f"max_time reached at step {step}")
             return True
         return False
 
@@ -623,7 +633,7 @@ class Trainer:
                 self.logs.setdefault(k, []).append(float(v))
         last = dict(zip(keys, vals[-1]))
         if not quiet:
-            logger.info(
+            self.logger.info(
                 "step %5d | loss %.4f | psnr %.2f | mnn %.3f | rm %d | vr %d",
                 pending[-1][0], last["loss"], last["psnr"], mnn,
                 int(last["rm_samples"]), int(last["vr_samples"]),

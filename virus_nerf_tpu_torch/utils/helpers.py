@@ -1,18 +1,160 @@
-"""Host helpers: the turbo colormap, depth images and the device-memory
-watchdog.
+"""Host helpers: sensor names, NaN-aware interpolation and smoothing,
+convergence, downsampling, mask overlays, the turbo colormap, depth images
+and the device-memory watchdog.
 
-Counterpart of ``virus_nerf_tpu/utils/helpers.py:143-183`` (reference:
-modules/utils.py:223-228, helpers/system_fcts.py:8-38).  The port needs
-neither OpenCV nor matplotlib: it carries matplotlib's 256-entry "turbo"
+Counterpart of ``virus_nerf_tpu/utils/helpers.py`` (reference:
+helpers/data_fcts.py:9-353, helpers/plotting_fcts.py:5-40,
+modules/utils.py:223-228, helpers/system_fcts.py:8-38): numpy copies of
+the JAX package's functions.  The port needs neither OpenCV nor
+matplotlib for its depth images: it carries matplotlib's 256-entry "turbo"
 table (``matplotlib/_cm_listed.py``, ``_turbo_data``: Google's Turbo
 colormap, Apache-2.0) and looks it up as ``matplotlib.colormaps["turbo"]``
-does a float array.
+does a float array.  ``combine_imgs`` reads colour names through
+matplotlib, imported when it is called; ``smooth_ignore_nans`` imports
+scipy when it is called.
 """
 
 from __future__ import annotations
 
+from typing import Dict, List, Sequence
+
 import numpy as np
 import torch
+
+# sensor stack naming (reference: helpers/data_fcts.py:9-19)
+ETHZ_SENSORS: Dict[str, List[str]] = {
+    "CAM": ["CAM1", "CAM3"],
+    "USS": ["USS1", "USS3"],
+    "TOF": ["TOF1", "TOF3"],
+}
+RH2_SENSORS: Dict[str, List[str]] = {"RGBD": ["RGBD_1"]}
+
+
+def sensor_name2id(sensor_name, dataset: str = "ETHZ"):
+    """'CAM1' -> 1 etc. (reference: helpers/data_fcts.py:215-265)."""
+    names = np.atleast_1d(np.asarray(sensor_name, dtype=object))
+    ids = np.array([int(str(n)[-1]) for n in names])
+    return int(ids[0]) if np.isscalar(sensor_name) or isinstance(
+        sensor_name, str
+    ) else ids
+
+
+def sensor_id2name(sensor_id, sensor_type: str = "CAM", dataset: str = "ETHZ"):
+    """1 -> 'CAM1' etc. (reference: helpers/data_fcts.py:267-308)."""
+    ids = np.atleast_1d(np.asarray(sensor_id))
+    names = np.array([f"{sensor_type}{int(i)}" for i in ids], dtype=object)
+    return str(names[0]) if np.isscalar(sensor_id) or isinstance(
+        sensor_id, (int, np.integer)
+    ) else names
+
+
+def lin_interpolate_array(x1: np.ndarray, y1: np.ndarray, x2: np.ndarray,
+                          border_condition: str = "nan") -> np.ndarray:
+    """y2 values for x2 by linear interpolation of (x1, y1), in the order
+    of x2 (reference: helpers/data_fcts.py:22-83)."""
+    if border_condition not in ("nan", "nearest"):
+        raise ValueError("border_condition must be 'nan' or 'nearest'")
+    order = np.argsort(x1)
+    x1s, y1s = np.asarray(x1)[order], np.asarray(y1)[order]
+    if border_condition == "nan":
+        return np.interp(x2, x1s, y1s, left=np.nan, right=np.nan)
+    return np.interp(x2, x1s, y1s, left=y1s[0], right=y1s[-1])
+
+
+def lin_interpolate_nans(arr: np.ndarray) -> np.ndarray:
+    """NaNs replaced by linear interpolation between the nearest valid
+    neighbours (reference: helpers/data_fcts.py:85-137)."""
+    arr = np.array(arr, dtype=float)
+    nan = np.isnan(arr)
+    if nan.all() or not nan.any():
+        return arr
+    idx = np.arange(arr.shape[0])
+    arr[nan] = np.interp(idx[nan], idx[~nan], arr[~nan])
+    return arr
+
+
+def convolve_ignore_nans(arr: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """Convolution after NaN interpolation
+    (reference: helpers/data_fcts.py:139-158)."""
+    return np.convolve(lin_interpolate_nans(arr), kernel, mode="same")
+
+
+def smooth_ignore_nans(arr: np.ndarray, window_size: int,
+                       polyorder: int = 3) -> np.ndarray:
+    """Savitzky-Golay smoothing after NaN interpolation
+    (reference: helpers/data_fcts.py:160-185)."""
+    arr = np.asarray(arr, float)
+    if arr.shape[0] < window_size:
+        return arr.copy()
+    from scipy.signal import savgol_filter
+
+    return savgol_filter(lin_interpolate_nans(arr), window_size, polyorder)
+
+
+def data_converged(arr: np.ndarray, threshold: float,
+                   data_increasing: bool) -> int:
+    """First index after which the data stays past the threshold; -1 if it
+    never converges (reference: helpers/data_fcts.py:187-213)."""
+    arr = np.asarray(arr)
+    ok = arr > threshold if data_increasing else arr < threshold
+    tail_ok = np.cumprod(ok[::-1].astype(int))[::-1]
+    if not tail_ok.any():
+        return -1
+    return int(np.argmax(tail_ok))
+
+
+def downsample_data(datas: Sequence[np.ndarray], num_imgs: int,
+                    num_imgs_downsampled: int) -> List[np.ndarray]:
+    """The rows of ``num_imgs_downsampled`` equally spaced images of
+    (N*M, ...) or (N, M, ...) arrays (reference:
+    helpers/data_fcts.py:310-353)."""
+    N, N_down = num_imgs, num_imgs_downsampled
+    if N < N_down:
+        raise ValueError("cannot downsample to more images than available")
+    idxs = np.linspace(0, N - 1, N_down, dtype=int)
+    out = []
+    for data in datas:
+        shape = data.shape
+        if shape[0] == N:
+            sub = data[idxs]
+        else:
+            M = shape[0] // N
+            sub = data.reshape(N, M, *shape[1:])[idxs]
+        out.append(sub.reshape(-1, *shape[1:]))
+    return out
+
+
+def require_matplotlib():
+    """matplotlib's pyplot on the Agg backend; ImportError naming
+    matplotlib where it is not installed."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError(
+            "the plots need matplotlib, which is not installed"
+        ) from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def combine_imgs(bool_imgs: Sequence[np.ndarray], colors: Sequence[str],
+                 upsample: int = 1) -> np.ndarray:
+    """Boolean masks overlaid as coloured layers (later layers on top), an
+    RGBA uint8 image (reference: helpers/plotting_fcts.py:5-40).  Colour
+    names are matplotlib's (``matplotlib.colors.to_rgba``)."""
+    import matplotlib.colors
+
+    h, w = bool_imgs[0].shape[:2]
+    rgb = np.zeros((h, w, 4), float)
+    for img, color in zip(bool_imgs, colors):
+        rgb[np.asarray(img).astype(bool)] = matplotlib.colors.to_rgba(color)
+    rgb = (255 * rgb).astype(np.uint8)
+    if upsample > 1:
+        rgb = np.repeat(np.repeat(rgb, upsample, axis=0), upsample, axis=1)
+    return rgb
+
 
 # matplotlib's _turbo_data, row i = RGB of entry i
 TURBO = np.array([
