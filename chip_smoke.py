@@ -90,8 +90,8 @@ Phases, each printed as it finishes; any failure exits non-zero:
     fresh trainer renders a test image bit-identical to the trained one;
     B1 against its plain version at the keys of the run's last step.
     Printed: the fixture's write time, the decode and read times, each
-    split's load time, ms/step and rays/s over steps 16-48 (host clock
-    after a sync, the intermediate evaluation at step 24 taken out), the
+    split's load time, ms/step and rays/s over steps 24-48 (the host
+    clock around the second chunk, after a sync), the
     intermediate and final evaluation seconds and the peak memory;
 16. the RH2 run: the port's RH2 fixture writer at its defaults (75
     trajectory points x 4 cameras = 300 observations at 244x320, 400,000
@@ -166,11 +166,28 @@ Phases, each printed as it finishes; any failure exits non-zero:
 25. without matplotlib (after 23 on the ETHZ map): every new module
     (analysis, plots, deployment, logging) imports in a fresh interpreter
     that cannot import matplotlib, and ``evaluate(plot=True)`` raises
-    ImportError naming matplotlib before it renders.
+    ImportError naming matplotlib before it renders;
+26. the training chunk as CUDA graphs (``Trainer.make_train_chunk``, which
+    ``Trainer.train`` runs on every path above past the NGP warm-up): on
+    fresh states from one seed in deterministic mode, graph against eager
+    (``run_steps``) for 32 steps of the bench and scale-1.0 configurations
+    (the latter entered at step 3: single-step graphs, then groups) and 16
+    of the XOR (chunks of 5 and 3: lone grid-update graphs), the
+    slabs+factors ``mixed``, the tri-plane and the ETHZ room's
+    ``Config()`` configurations: every metric of every step, parameters,
+    Adam moments and count, grid, USS statistics and the generator bit for
+    bit; then a step of each, eager and graph, in turns on the bench and
+    scale-1.0 configurations: host launches (profiler), the port's kernel
+    launches (replay-aware), device ms and host ms, the replay-aware
+    counts of B2 and the march held once against the device kernels the
+    profiler saw; then ``python -m virus_nerf_tpu_torch.bench`` at 8 x 4
+    and at ``--scale 1.0`` (``kernels_ok`` true).
 
-On every path the renderer's marches on the card are counted, and each
-must have launched ``march_select`` once (no path launches the
-standalone lattice).  The line before the last is the card's name and
+Launch counts are replay-aware (``ops.launch_counts``): a wrapper's count
+moves where it launches (at a capture, once), and each CUDA graph adds
+what it holds at every replay.  On every path the renderer's marches on
+the card are counted, and each must have launched ``march_select`` once
+(no path launches the standalone lattice).  The line before the last is the card's name and
 power limit (nvidia-smi); before it, one JSON line with the kernels'
 results.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.
@@ -229,6 +246,40 @@ def time_turns(fns, iters: int = 10):
     torch.cuda.synchronize()
     first = [one(fn) for fn in fns]
     second = [one(fn) for fn in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+def graph_time_turns(fns, iters: int = 10):
+    """Mean ms per call of each function replayed from a CUDA graph of
+    ``iters`` calls (captured after one warm-up call on the capture's
+    stream), timed with CUDA events over 5 replays in turns a, b, b, a:
+    the calls without the host between them."""
+    stream = torch.cuda.Stream()
+    graphs = []
+    for fn in fns:
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            for _ in range(iters):
+                fn()
+        graphs.append(g)
+
+    def one(g):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        g.replay()
+        start.record()
+        for _ in range(5):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (5 * iters)
+
+    first = [one(g) for g in graphs]
+    second = [one(g) for g in reversed(graphs)][::-1]
     return [(a + b) / 2 for a, b in zip(first, second)]
 
 
@@ -570,6 +621,14 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
             0, idx, src),
     ])
     dev_ms = device_ms(lambda: kernel(vals, keys, R), kernel_name, per_call=2)
+    graph = {}
+    if layout == "rows":
+        # B3 under a CUDA graph, as the training chunk runs it (ROADMAP
+        # Queue B open work 2: the small streams' host gap)
+        graph["graph_ms"], graph["graph_library_ms"] = graph_time_turns([
+            lambda: kernel(vals, keys, R),
+            lambda: torch.zeros((G * R, width), device=vals.device).index_add_(
+                0, idx, src)])
     # each input read once, each output written once; one add per term
     # (and one multiply for a factor product)
     b_ms, b_by = bound_ms(
@@ -584,19 +643,21 @@ def check_segment_sum(name, vals, keys, R, layout: str = "ts"):
         f"4*eps32*sqrt(n)*sum|v| per row), two calls bit-identical {repeat}; "
         f"kernel {ms:.4f} ms (device {dev_ms:.4f}) plain "
         f"{plain_ms:.4f} ms zeros+index_add_ {lib_ms:.4f} ms bound {b_ms:.4f} ms "
-        f"({b_by}) {'ok' if ok else 'MISMATCH'}")
+        f"({b_by}){''.join(f' {k} {v:.4f}' for k, v in graph.items())} "
+        f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"segment_sum[{layout}] {name} disagrees with its plain version")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, **graph}
 
 
 def sum_results(results):
     """One kernel entry over several calls (one step's calls): times and
     bounds add, the error is the largest."""
     out = {k: sum(r[k] for r in results)
-           for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
+           for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                     "graph_ms", "graph_library_ms")
            if k in results[0]}
     out["max_abs_err"] = max(r["max_abs_err"] for r in results)
     out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
@@ -674,7 +735,8 @@ def check_adam(dev, name, leaves):
     moments, another function, so it is not timed (library_ms None).
     Returns a result dict."""
     from virus_nerf_tpu_torch.ops.fused_adam import (
-        adam_scalars,
+        adam_hyper,
+        adam_scal,
         adam_update_leaves_,
         adam_update_leaves_plain_,
     )
@@ -687,7 +749,10 @@ def check_adam(dev, name, leaves):
         mu = torch.randn(shape, generator=gen, device=dev) * 0.1
         nu = torch.rand(shape, generator=gen, device=dev) * 0.01
         made.append((p.to(dtype), g, mu, nu))
-    args = adam_scalars(1e-2, 0.9, 0.999, 3) + (0.9, 0.999, 1e-15)
+    # scal at step 3, formed on the card as a step forms it
+    scal = adam_scal(torch.tensor(3, dtype=torch.int32, device=dev),
+                     adam_hyper(1e-2, 0.9, 0.999, dev))
+    args = (scal, 0.9, 0.999, 1e-15)
     # kernel, plain and library copies of (p, g, mu, nu)
     a, b, c = ([(p.clone(), g, mu.clone(), nu.clone()) for p, g, mu, nu in made]
                for _ in range(3))
@@ -882,26 +947,9 @@ def reference_step(dev, hash_variant: str, dtype: str = "float32",
 
 # ---------------------------------------------------------------- the paths
 def bench_config():
-    from virus_nerf_tpu_torch.configs.config import Config
+    from virus_nerf_tpu_torch import bench
 
-    cfg = Config()  # bench.py:311-346
-    cfg.model.grid_type = "occ"
-    cfg.model.grid_size = 128
-    cfg.model.scale = 0.5
-    cfg.model.hash_levels = 8
-    cfg.model.hash_features_per_level = 4
-    cfg.model.hash_log2_T = 19
-    cfg.model.hash_max_res = 1024
-    cfg.training.batch_size = 4096
-    cfg.training.max_samples_per_ray = 128
-    cfg.training.march_candidates = 1024
-    cfg.training.sample_budget = 4096 * 28
-    cfg.training.sampling_strategy = {
-        "imgs": "all", "pixs": {"valid_uss": 0.4, "valid_tof": 0.4},
-    }
-    cfg.training.sensors = ["USS", "ToF"]
-    cfg.occ_grid.batch_size = 1024
-    cfg.occ_grid.update_interval = 8
+    cfg = bench.bench_config()  # bench.py:311-346
     cfg.training.max_steps = 48
     cfg.training.max_time = 1e9  # the step count ends this run
     cfg.evaluation.eval_every_n_steps = 8  # metrics fetched every 8 steps
@@ -909,12 +957,64 @@ def bench_config():
 
 
 def reset_counts(wrappers):
-    for w in wrappers.values():
-        w.launches = 0
+    """Every count to 0, and every CUDA graph's replays since to 0."""
+    from virus_nerf_tpu_torch.ops import launch_counts
+
+    launch_counts.reset(wrappers.values())
 
 
 def read_counts(wrappers):
-    return {name: w.launches for name, w in wrappers.items()}
+    """The launches since the reset, graph replays included: what each
+    graph holds times its replays (``ops.launch_counts``; a wrapper's own
+    count moves only where it launches, which a replay does not pass)."""
+    from virus_nerf_tpu_torch.ops import launch_counts
+
+    return {name: launch_counts.launches(w) for name, w in wrappers.items()}
+
+
+@contextlib.contextmanager
+def training_counted(wrappers, record):
+    """Count the launches of the training steps alone and time each chunk:
+    ``Trainer.make_train_chunk``'s chunks and ``Trainer.run_steps`` (the
+    NGP warm-up's steps) add their replay-aware launches to
+    ``record["launches"]`` and (first step, steps, seconds after a sync) to
+    ``record["chunks"]``."""
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    make_chunk, run_steps = Trainer.make_train_chunk, Trainer.run_steps
+    record.setdefault("launches", {k: 0 for k in wrappers})
+    record.setdefault("chunks", [])
+
+    def counted(fn, state, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, first = read_counts(wrappers), state.step
+        tic = time.perf_counter()
+        out = fn(state, *args, **kwargs)
+        torch.cuda.synchronize()
+        record["chunks"].append((first, state.step - first,
+                                 time.perf_counter() - tic))
+        for k, v in read_counts(wrappers).items():
+            record["launches"][k] += v - before[k]
+        return out
+
+    def make(self, n):
+        chunk = make_chunk(self, n)
+        return lambda state, *a, **kw: counted(chunk, state, *a, **kw)
+
+    def steps(self, state, *args, **kwargs):
+        return counted(lambda st, *a, **kw: run_steps(self, st, *a, **kw),
+                       state, *args, **kwargs)
+
+    with mock.patch.object(Trainer, "make_train_chunk", make), \
+            mock.patch.object(Trainer, "run_steps", steps):
+        yield record
+
+
+def chunk_step_s(record, first_steady):
+    """Seconds a step over the chunks that start at ``first_steady`` or
+    later (each timed alone, after a sync)."""
+    done = [(n, s) for first, n, s in record["chunks"] if first >= first_steady]
+    return sum(s for _, s in done) / sum(n for n, _ in done)
 
 
 def check_training(name, trainer, state, n_steps, first_steady, falls=True):
@@ -1128,7 +1228,10 @@ def count_marches():
 
     counted.launches = 0
     renderer.march_rays_train = counted
-    return counted
+    # a CUDA graph that holds a march counts it at every replay
+    from virus_nerf_tpu_torch.ops.launch_counts import register
+
+    return register(counted)
 
 
 def check_marches(name, launches):
@@ -1295,8 +1398,9 @@ def evaluate_scale1(trainer, state, test_ds, scene, img_wh, card):
 
 def instrumented_run(main_fn, argv, loader, wrappers):
     """``main_fn(argv)`` (``run.main``) with the kernel counts set to 0 just
-    before and read just after, instrumented: the host clock after a sync
-    at steps 16 and 48, the seconds of every intermediate and final
+    before and read just after, instrumented: each training chunk's
+    seconds and launches (``training_counted``), the seconds of every
+    intermediate and final
     evaluation and of the final one's parts (colour renders; depth scans
     of every sensor, where an intermediate one scores the NeRF alone),
     each load by ``loader = (module, function name)`` and the training
@@ -1308,9 +1412,8 @@ def instrumented_run(main_fn, argv, loader, wrappers):
     from virus_nerf_tpu_torch.models.ngp import NGPModel
     from virus_nerf_tpu_torch.training.trainer import Trainer
 
-    out = {"clock": {}, "evals": [], "loads": [], "parts": {},
-           "step_launches": {k: 0 for k in wrappers}}
-    train_step, inter_eval = Trainer.train_step, Trainer._intermediate_eval
+    out = {"evals": [], "loads": [], "parts": {}, "training": {}}
+    inter_eval = Trainer._intermediate_eval
     train, evaluate = Trainer.train, Evaluator.evaluate
     ev_color, ev_depth = Evaluator.evaluate_color, Evaluator.evaluate_depth
     load = getattr(*loader)
@@ -1324,16 +1427,6 @@ def instrumented_run(main_fn, argv, loader, wrappers):
             record(args, kwargs, time.perf_counter() - t0)
             return result
         return wrapper
-
-    def step_clocked(self, state, elapse_time=None, group=None):
-        before = read_counts(wrappers)
-        result = train_step(self, state, elapse_time, group)
-        for k, v in read_counts(wrappers).items():
-            out["step_launches"][k] += v - before[k]
-        if state.step in (16, 48):
-            torch.cuda.synchronize()
-            out["clock"][state.step] = time.perf_counter()
-        return result
 
     def final_depth(args, kwargs, seconds):
         sensors = kwargs.get("sensors", args[4] if len(args) > 4 else None)
@@ -1351,7 +1444,6 @@ def instrumented_run(main_fn, argv, loader, wrappers):
     hook = torch.nn.modules.module.register_module_forward_pre_hook(
         keep_train_positions)
     replacements = [
-        (Trainer, "train_step", step_clocked),
         (Trainer, "train", keep_state),
         (Trainer, "_intermediate_eval", timed(
             inter_eval, lambda a, k, s: out["evals"].append((a[1].step, s)))),
@@ -1366,6 +1458,7 @@ def instrumented_run(main_fn, argv, loader, wrappers):
     with contextlib.ExitStack() as patches:
         for owner, name, replacement in replacements:
             patches.enter_context(mock.patch.object(owner, name, replacement))
+        patches.enter_context(training_counted(wrappers, out["training"]))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(wrappers)
@@ -1375,6 +1468,7 @@ def instrumented_run(main_fn, argv, loader, wrappers):
         out["wall"] = time.perf_counter() - tic
         out["launches"] = read_counts(wrappers)
     hook.remove()
+    out["step_launches"] = out["training"]["launches"]
     out["peak"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
@@ -1385,16 +1479,15 @@ def report_run(name, r, card):
     trainer, state, metrics = r["trainer"], r["state"], r["metrics"]
     cfg = trainer.cfg
     check_training(name, trainer, state, 48, 16)
-    evals, clock, parts = r["evals"], r["clock"], r["parts"]
-    between = sum(s for step, s in evals if step != "final" and 16 < step < 48)
-    step_s = (clock[48] - clock[16] - between) / 32
+    evals, parts = r["evals"], r["parts"]
+    step_s = chunk_step_s(r["training"], 16)
     inter = [s for step, s in evals if step != "final"]
     final = [s for step, s in evals if step == "final"]
     log(f"{name}: {r['wall']:.2f} s in all; loads "
         f"{[(sp, round(s, 2)) for sp, s in r['loads']]} "
-        f"s; steady state steps 16-48: {1e3 * step_s:.2f} ms/step, "
-        f"{cfg.training.batch_size / step_s:.0f} rays/s (host clock after a "
-        f"sync, the evaluation at step 24 taken out); intermediate "
+        f"s; steady state steps 24-48: {1e3 * step_s:.2f} ms/step, "
+        f"{cfg.training.batch_size / step_s:.0f} rays/s (host clock around "
+        f"the second chunk, after a sync); intermediate "
         f"evaluations {[round(s, 2) for s in inter]} s, final evaluation "
         f"{final[0]:.2f} s (colour renders of {cfg.evaluation.num_color_pts} "
         f"images {parts['color']:.2f} s, depth scans and NND of "
@@ -1582,7 +1675,6 @@ def pso_run(root, wrappers, card, tmp):
     set to 0 just before the first and read just after the last.  Returns
     (launches of the calls and of their training steps, training steps)."""
     from virus_nerf_tpu_torch import run_optimization
-    from virus_nerf_tpu_torch.training.trainer import Trainer
 
     cuts = ["training.max_steps=24", "training.max_time=1e9",
             "evaluation.num_color_pts=1", "evaluation.num_depth_pts=4",
@@ -1598,16 +1690,9 @@ def pso_run(root, wrappers, card, tmp):
         f"at the RH2 run's width; cuts: training.max_steps 500 -> 24, "
         f"max_time 45 -> 1e9, evaluation.num_color_pts 8 -> 1, num_depth_pts "
         f"all -> 4, num_depth_pts_per_step 16 -> 4")
-    real, train_step = run_optimization.train_and_evaluate, Trainer.train_step
+    real = run_optimization.train_and_evaluate
     particles, leases = [], []
-    in_training = {k: 0 for k in wrappers}
-
-    def counted_step(self, state, elapse_time=None, group=None):
-        before = read_counts(wrappers)
-        result = train_step(self, state, elapse_time, group)
-        for k, v in read_counts(wrappers).items():
-            in_training[k] += v - before[k]
-        return result
+    training = {}
 
     def timed_particle(cfg, datasets=None, **kw):
         lease_path = os.path.join(save + "_workers", "pso_state.json")
@@ -1623,7 +1708,7 @@ def pso_run(root, wrappers, card, tmp):
 
     with mock.patch.object(run_optimization, "train_and_evaluate",
                            timed_particle), \
-            mock.patch.object(Trainer, "train_step", counted_step):
+            training_counted(wrappers, training):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(wrappers)
@@ -1638,6 +1723,7 @@ def pso_run(root, wrappers, card, tmp):
         torch.cuda.synchronize()
         wall = time.perf_counter() - tic
         launches = read_counts(wrappers)
+    in_training = training["launches"]
     with open(os.path.join(save, "pso_history.csv")) as f:
         rows = [line.rstrip("\n").split(",") for line in f]
     with open(os.path.join(save + "_workers", "pso_history.csv")) as f:
@@ -2398,6 +2484,196 @@ def mesh2d_run(dev, wrappers, card, tmp):
     return launches, n_steps, {"mesh_s": sec2, "flat_s": sec1}
 
 
+# -------------------------------------- the chunk as CUDA graphs (26)
+def assert_same_state(name, a, b):
+    """Parameters, Adam moments and count, grid, USS statistics and the
+    generator bit for bit; fails naming the first difference."""
+    pairs = [("count", a.optimizer.count, b.optimizer.count),
+             ("generator", a.generator.get_state(), b.generator.get_state())]
+    for (n, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        pairs.append((f"params.{n}", p, q))
+        pairs += [(f"adam.{m}.{n}", x, y) for m, x, y in
+                  zip(("mu", "nu"), a.optimizer._moments(p), b.optimizer._moments(q))]
+    pairs += [(f"grid.{f}", x, y) for f, x, y in zip(a.grid._fields, a.grid, b.grid)
+              if torch.is_tensor(x)]
+    if a.uss_stats is not None:
+        pairs += [(f"uss_stats.{f}", x, y) for f, x, y in
+                  zip(a.uss_stats._fields, a.uss_stats, b.uss_stats)]
+    bad = [n for n, x, y in pairs if not torch.equal(x, y)]
+    if bad or a.step != b.step or getattr(a.grid, "update_step", 0) != getattr(
+            b.grid, "update_step", 0):
+        fail(f"{name}: graph and eager differ in {bad[:6]} (steps {a.step}, "
+             f"{b.step})")
+
+
+def graph_cases(dev, ethz):
+    """(name, config, dataset, scene, trainer kwargs, eager steps first,
+    chunk sizes) of phase 26: bench and scale 1.0 32 steps, the rest 16;
+    the chunk sizes make every piece kind: groups (aligned), single steps
+    after an unaligned entry (scale 1.0), lone grid updates (XOR)."""
+    from virus_nerf_tpu_torch import quality_run
+    from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    ds, scene, _ = make_synthetic_dataset(n_images=16, img_wh=(160, 120),
+                                          device=dev)
+    wide = ["--hash-levels", "16", "--hash-feats", "2"]
+    xor = quality_run.quality_config(quality_run.parse_args(
+        ["--hash-variant", "xor", *wide]))
+    mixed = quality_run.quality_config(quality_run.parse_args(
+        [*wide, "--dtype", "mixed"]))
+    tri = bench_config()
+    tri.model.encoder_type = "triplane"
+    slabs = dict(hash_forward="slabs", hash_backward="factors")
+    return [
+        ("bench", bench_config(), ds, scene, {}, 0, (32,)),
+        ("scale 1.0", scale1_config(), ds, scene, {}, 3, (29,)),
+        ("XOR", xor, ds, scene, {}, 0, (5, 3, 5, 3)),
+        ("slabs+factors mixed", mixed, ds, scene, slabs, 0, (16,)),
+        ("tri-plane", tri, ds, scene, {}, 0, (16,)),
+        ("ETHZ Config()", *ethz, {}, 0, (16,)),
+    ]
+
+
+def graph_against_eager(name, cfg, ds, scene, kw, pre, sizes, wrappers, dev):
+    """Fresh states from one seed, in deterministic mode (the VIRUS grid's
+    evidence sum in a fixed order): ``run_steps`` (eager) against
+    ``make_train_chunk``'s graphs; every metric of every step and the whole
+    state bit for bit.  Returns the graph run's replay-aware launches."""
+    from virus_nerf_tpu_torch.training.trainer import METRIC_KEYS, Trainer
+
+    tr = Trainer(cfg, ds, scene=scene, device=dev, **kw)
+    n = sum(sizes)
+    with deterministic():
+        eager, graph = tr.init_state(7), tr.init_state(7)
+        tr.run_steps(eager, pre)
+        tr.run_steps(graph, pre)
+        pending = tr.run_steps(eager, n)
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        rows = []
+        for size in sizes:
+            _, keys, m = tr.make_train_chunk(size)(graph)
+            rows.append(m)
+        torch.cuda.synchronize()
+        launches = read_counts(wrappers)
+    got = torch.cat(rows)
+    want = torch.stack([torch.stack([m[k].float() for k in keys])
+                        for _, m in pending])
+    if keys != [k for k in METRIC_KEYS if k in pending[0][1]] or not torch.equal(
+            got, want):
+        fail(f"{name}: graph metrics differ from eager: losses "
+             f"{got[:, 0].tolist()} against {want[:, 0].tolist()}")
+    assert_same_state(name, graph, eager)
+    pieces = sorted({k[:2] for k in tr._graphs.graphs})
+    log(f"graph vs eager, {name}: {pre} eager steps, then chunks {sizes}: "
+        f"losses, every metric, parameters, moments, count, grid"
+        f"{', USS statistics' if eager.uss_stats is not None else ''} and "
+        f"generator bit-identical over {n} steps (deterministic mode); graphs "
+        f"{pieces}; launches in the chunks {launches}")
+    check_adam_per_step(f"graph {name}", launches, n)
+    check_marches(f"graph {name}", launches)
+    del tr, eager, graph, pending
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_launches(fn, n_steps, names=()):
+    """Host launches a step (cudaLaunchKernel and cudaGraphLaunch calls),
+    device ms a step (every kernel's and copy's own time), and the device
+    kernels whose name holds each of ``names``, from ``torch.profiler``
+    over ``fn()`` (``n_steps`` steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    ev = prof.key_averages()
+    kernel = sum(e.count for e in ev if "LaunchKernel" in e.key) / n_steps
+    graph = sum(e.count for e in ev if "GraphLaunch" in e.key) / n_steps
+    # the device's own entries (a host op's entry repeats its kernels' time)
+    on_device = [e for e in ev if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in on_device) / 1e3 / n_steps
+    device_kernels = {k: sum(e.count for e in on_device if k in e.key)
+                      for k in names}
+    return kernel, graph, dev_ms, device_kernels
+
+
+def graph_turns(name, cfg, ds, scene, wrappers, dev, card, chunk=24):
+    """Eager (``run_steps``) against graph (``make_train_chunk``) a step,
+    each on its own state warmed by 48 steps, in turns eager, graph, graph,
+    eager over ``chunk`` steps each: host launches (profiler), the port's
+    kernel launches (replay-aware counts), device ms and host ms (clock
+    after a sync).  Once, on the graph's first turn, the replay-aware
+    counts of B2 and the march are held against the kernels the
+    profiler saw on the device."""
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    tr = Trainer(cfg, ds, scene=scene, device=dev)
+    eager, graph = tr.init_state(7), tr.init_state(7)
+    tr.run_steps(eager, 48)
+    run_chunk = tr.make_train_chunk(chunk)
+    run_chunk(graph)
+    run_chunk(graph)
+    fns = {"eager": lambda: tr.run_steps(eager, chunk),
+           "graph": lambda: run_chunk(graph)}
+    out = {k: {"host_ms": [], "device_ms": [], "launches": [],
+               "graph_launches": [], "kernel_launches": []} for k in fns}
+    checked = False
+    for kind in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fns[kind]()
+        torch.cuda.synchronize()
+        out[kind]["host_ms"].append(1e3 * (time.perf_counter() - tic) / chunk)
+        reset_counts(wrappers)
+        kernel, glaunch, dev_ms, seen = profile_launches(
+            fns[kind], chunk, ("fused_adam_kernel", "march_select_kernel"))
+        counts = read_counts(wrappers)
+        out[kind]["launches"].append(kernel)
+        out[kind]["graph_launches"].append(glaunch)
+        out[kind]["device_ms"].append(dev_ms)
+        out[kind]["kernel_launches"].append(
+            {k: v / chunk for k, v in counts.items() if v})
+        if kind == "graph" and not checked:
+            checked = True
+            want = {"fused_adam_kernel": counts["fused_adam"],
+                    "march_select_kernel": counts["march_select"]}
+            log(f"graph turns, {name}: replay-aware counts {want} against the "
+                f"device kernels the profiler saw {seen} over {chunk} steps")
+            if want != seen or counts["fused_adam"] != chunk:
+                fail(f"{name}: replay-aware launch counts {want} differ from "
+                     f"the profiler's {seen}")
+    for kind, r in out.items():
+        log(f"graph turns, {name}, {kind}: host ms a step {r['host_ms']}, device "
+            f"ms a step {r['device_ms']}, host launches a step (cudaLaunchKernel) "
+            f"{r['launches']}, cudaGraphLaunch a step {r['graph_launches']}, "
+            f"port kernels a step {r['kernel_launches'][0]}; on {card}")
+    del tr, eager, graph
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_runs(card):
+    """``python -m virus_nerf_tpu_torch.bench`` at 8 x 4 and at --scale
+    1.0, in this process: kernels_ok true, a positive rate."""
+    from virus_nerf_tpu_torch import bench
+
+    out = {}
+    for name, argv in (("8x4", []), ("scale 1.0", ["--scale", "1.0"])):
+        tic = time.perf_counter()
+        r = bench.main(argv)
+        log(f"bench {name}: {json.dumps(r)} in {time.perf_counter() - tic:.1f} "
+            f"s of command time; on {card}")
+        if r["kernels_ok"] is not True or not r["value"] > 0:
+            fail(f"bench {name}: {r}")
+        out[name] = r
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         log("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -2677,6 +2953,8 @@ def main() -> None:
         budget_ethz_launches, budget["ethz"] = eval_budget(
             "ETHZ", trainer, state, wrappers, card)
         no_matplotlib_check(trainer, state, tmp)
+        # the ETHZ room's Config() and training split, for phase 26
+        ethz_case = (trainer.cfg, trainer.train_dataset, trainer.scene)
         del trainer, state
     torch.cuda.empty_cache()
 
@@ -2719,6 +2997,16 @@ def main() -> None:
     del march_cases
     torch.cuda.empty_cache()
 
+    # ---- 26. the chunk as CUDA graphs: graph against eager bit for bit,
+    # then a step of each in turns, then the bench entry point
+    graph_launches = {}
+    for name, *case in graph_cases(dev, ethz_case):
+        graph_launches[name] = graph_against_eager(name, *case, wrappers, dev)
+    del ethz_case
+    turns = {name: graph_turns(name, cfg, ds, scene, wrappers, dev, card)
+             for name, cfg, ds, scene, *_ in graph_cases(dev, (None,) * 3)[:2]}
+    benches = bench_runs(card)
+
     # ms: the kernel's calls of one step at the keys (B1, B3, B4) or table
     # (B5) of its path; fused Adam on the 16 x 2 hash table; one march at
     # the default configuration's S = 256 (each case under "cases")
@@ -2733,12 +3021,16 @@ def main() -> None:
              "mesh_2d": mesh_launches, "ethz_density": density_launches,
              "ethz_export": export_launches,
              "eval_budget": {k: budget_ethz_launches[k] + budget_rh2_launches[k]
-                             for k in wrappers}}
+                             for k in wrappers},
+             **{f"graph {name}": c for name, c in graph_launches.items()}}
     steps = {"bench": 48, "xor": 32, "slabs": 32, "scale1": 48, "ngp": 32,
              "ethz": 48, "rh2": 48, "pso": pso_steps, "xor_modes": 2,
              "triplane": 48, "dp": 16, "dp_scale1": 8,
              "population": pop["population_steps"],
-             "weights_eval": pop["weights_steps"], "mesh_2d": mesh_steps}
+             "weights_eval": pop["weights_steps"], "mesh_2d": mesh_steps,
+             "graph bench": 32, "graph scale 1.0": 29, "graph XOR": 16,
+             "graph slabs+factors mixed": 16, "graph tri-plane": 16,
+             "graph ETHZ Config()": 16}
     # a step's launches of the training paths: the RH2 and PSO runs'
     # evaluations march too, so theirs are counted in the training steps
     # alone
@@ -2760,27 +3052,29 @@ def main() -> None:
         entry("segment_sum_sorted", "segment_sum", "segment_sum.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:231",
               ["bench", "scale1", "ngp", "ethz", "rh2", "pso", "dp",
-               "dp_scale1", "population", "weights_eval", "mesh_2d"], b1,
+               "dp_scale1", "population", "weights_eval", "mesh_2d",
+               "graph bench", "graph scale 1.0", "graph ETHZ Config()"], b1,
               scale1_step=b1_scale1, ethz_step=b1_ethz, rh2_step=b1_rh2,
               dp_step=b1_dp, mesh_2d_seconds=mesh_times, **skew["ts"]),
         entry("fused_adam", "fused_adam", "fused_adam.cu",
               "virus_nerf_tpu/ops/fused_adam.py:37", list(paths),
               adam[xor_table_n], bf16_params=adam_bf16,
               all_leaves=adam_leaves, all_leaves_bf16_table=adam_leaves_bf16,
-              triplane_leaves=adam_tri),
+              triplane_leaves=adam_tri, graph_turns=turns, bench=benches),
         entry("group_segment_sum_t_sorted", "segment_sum_rows",
               "segment_sum_rows.cu",
               "virus_nerf_tpu/ops/segment_sum_pallas.py:101",
-              ["xor", "xor_modes"], b3, xor_mixed_step=b3_modes["mixed"],
+              ["xor", "xor_modes", "graph XOR"], b3, xor_mixed_step=b3_modes["mixed"],
               xor_bfloat16_step=b3_modes["bfloat16"], **skew["rows"]),
         entry("group_segment_sum_tsf_sorted", "segment_sum_factors",
               "segment_sum_factors.cu",
-              "virus_nerf_tpu/ops/segment_sum_pallas.py:333", ["slabs"],
+              "virus_nerf_tpu/ops/segment_sum_pallas.py:333",
+              ["slabs", "graph slabs+factors mixed"],
               b4[torch.bfloat16], float32_factors=b4[torch.float32],
               **skew["tsf"]),
         entry("widen_slabs_group", "widen_slabs", "widen_slabs.cu",
               "virus_nerf_tpu/ops/widen_pack_pallas.py:90",
-              ["slabs", "ethz_density"], b5, density_probes=remainder,
+              ["slabs", "ethz_density", "graph slabs+factors mixed"], b5, density_probes=remainder,
               groups_ms={k: v["ms"] for k, v in b5_groups.items()},
               groups_device_ms={k: v["device_ms"] for k, v in b5_groups.items()}),
         # the port's own kernel: the march from the cube hits to the

@@ -14,7 +14,8 @@ from virus_nerf_tpu_torch.ops.fused_adam import (
     ADAM_CHUNK,
     ADAM_MAX_LEAVES,
     FusedAdam,
-    adam_scalars,
+    adam_hyper,
+    adam_scal,
     adam_update_,
     adam_update_leaves_,
     adam_update_plain_,
@@ -39,6 +40,12 @@ from virus_nerf_tpu_torch.ops.segment_sum import (
     segment_sum_sorted,
     segment_sum_sorted_plain,
 )
+
+
+def _scal(count, device):
+    """The fused Adam's (3,) scal at a step count, on the card."""
+    return adam_scal(torch.tensor(count, dtype=torch.int32, device=device),
+                     adam_hyper(1e-2, 0.9, 0.999, device))
 
 
 @pytest.fixture
@@ -155,7 +162,7 @@ def test_fused_adam_kernel_matches_plain(cuda_device, n):
     p, g = (torch.randn(n, generator=gen, device=cuda_device) for _ in range(2))
     mu = torch.randn(n, generator=gen, device=cuda_device) * 0.1
     nu = torch.rand(n, generator=gen, device=cuda_device) * 0.01
-    args = adam_scalars(1e-2, 0.9, 0.999, 5) + (0.9, 0.999, 1e-15)
+    args = (_scal(5, cuda_device), 0.9, 0.999, 1e-15)
     a = [x.clone() for x in (p, mu, nu)]
     b = [x.clone() for x in (p, mu, nu)]
     before = adam_update_leaves_.launches
@@ -164,9 +171,8 @@ def test_fused_adam_kernel_matches_plain(cuda_device, n):
     torch.cuda.synchronize()
     assert adam_update_leaves_.launches == before + 1
     for x, y in zip(a, b):
-        # the same float32 operations in the same order, an ulp apart at
-        # most (PyTorch divides by a host scalar as a reciprocal multiply);
-        # 1e-6 is the bench's gate for the TPU kernel (bench.py:276)
+        # the same float32 operations in the same order on the same scal
+        # tensor; 1e-6 is the bench's gate for the TPU kernel (bench.py:276)
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
                                    rtol=0, atol=1e-6)
 
@@ -365,7 +371,7 @@ def test_fused_adam_kernel_on_bf16_parameters(cuda_device):
     g = torch.randn(n, generator=gen, device=cuda_device)
     mu = torch.randn(n, generator=gen, device=cuda_device) * 0.1
     nu = torch.rand(n, generator=gen, device=cuda_device) * 0.01
-    args = adam_scalars(1e-2, 0.9, 0.999, 5) + (0.9, 0.999, 1e-15)
+    args = (_scal(5, cuda_device), 0.9, 0.999, 1e-15)
     a = [x.clone() for x in (p, mu, nu)]
     b = [x.clone() for x in (p, mu, nu)]
     before = adam_update_leaves_.launches
@@ -416,7 +422,7 @@ def test_fused_adam_leaves_in_one_launch(cuda_device, n_leaves):
         mu = arr(n, start + (k == 7), 0.1)
         leaves.append((p, arr(n, start), mu, arr(n, start).abs() * 0.01))
     want = [tuple(x.clone() for x in leaf) for leaf in leaves]
-    args = adam_scalars(1e-2, 0.9, 0.999, 4) + (0.9, 0.999, 1e-15)
+    args = (_scal(4, cuda_device), 0.9, 0.999, 1e-15)
     before = adam_update_leaves_.launches
     adam_update_leaves_(leaves, *args)
     for p, g, mu, nu in want:
@@ -453,7 +459,7 @@ def test_fused_adam_step_is_one_launch(cuda_device):
         for p, g in zip(ps, grads):
             p.grad = g
         opt.step()
-        args = adam_scalars(1e-2, 0.9, 0.999, step) + (0.9, 0.999, 1e-15)
+        args = (_scal(step, cuda_device), 0.9, 0.999, 1e-15)
         for r, g, m, v in zip(ref, grads, mus, nus):
             adam_update_plain_(r, g, m, v, *args)
     torch.cuda.synchronize()

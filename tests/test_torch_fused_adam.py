@@ -1,5 +1,6 @@
 """Parity of the port's fused Adam (virus_nerf_tpu_torch/ops/fused_adam.py)
-with the JAX package: the leaf formula against ``_adam_leaf_jnp`` and three
+with the JAX package: the leaf formula against ``_adam_leaf_jnp``, the
+device-formed ``scal`` against JAX's at every count 1..2000, and three
 optimizer steps against ``fused_adam(lr, eps=1e-15)`` on a small pytree.
 
 The CUDA kernel (csrc/fused_adam.cu) updates every leaf of a group in one
@@ -24,14 +25,32 @@ from virus_nerf_tpu_torch.ops.fused_adam import (
     ADAM_CHUNK,
     ADAM_MAX_LEAVES,
     FusedAdam,
+    adam_hyper,
     adam_leaf_plan,
-    adam_scalars,
+    adam_scal,
     adam_update_,
     adam_update_leaves_,
     adam_update_plain_,
 )
 
 torch.set_num_threads(1)
+
+
+def _scal(count, lr=1e-2, b1=0.9, b2=0.999):
+    """The port's (3,) scal at a step count, on the CPU."""
+    return adam_scal(torch.tensor(count, dtype=torch.int32),
+                     adam_hyper(lr, b1, b2, "cpu"))
+
+
+def _jax_scal(count, lr=1e-2, b1=0.9, b2=0.999):
+    """JAX's scal (fused_adam.py:123-131) at a step count, jitted as the
+    optimizer's update runs it."""
+    @jax.jit
+    def scal(c):
+        t = c.astype(jnp.float32)
+        return jnp.stack([jnp.float32(lr), 1.0 - jnp.float32(b1) ** t,
+                          1.0 - jnp.float32(b2) ** t])
+    return np.asarray(jax.vmap(scal)(jnp.asarray(count, jnp.int32)))
 
 
 def _leaf(n, seed=0):
@@ -46,15 +65,14 @@ def _leaf(n, seed=0):
 @pytest.mark.parametrize("count", [1, 7])
 def test_leaf_matches_adam_leaf_jnp(count):
     p, g, mu, nu = _leaf(1 << 14)
-    lr, bc1, bc2 = adam_scalars(1e-2, 0.9, 0.999, count)
-    scal = jnp.asarray([lr, bc1, bc2], jnp.float32)
+    scal_t = _scal(count)
+    scal = jnp.asarray(scal_t.numpy())
     d, mu_j, nu_j = jax.jit(_adam_leaf_jnp, static_argnums=(4, 5, 6))(
         jnp.asarray(g), jnp.asarray(mu), jnp.asarray(nu), scal, 0.9, 0.999,
         1e-15,
     )
     tp, tmu, tnu = (torch.from_numpy(x.copy()) for x in (p, mu, nu))
-    adam_update_(tp, torch.from_numpy(g), tmu, tnu, lr, bc1, bc2, 0.9, 0.999,
-                 1e-15)
+    adam_update_(tp, torch.from_numpy(g), tmu, tnu, scal_t, 0.9, 0.999, 1e-15)
     # the bench's on-chip gate for this kernel (bench.py:265-278): 1e-6
     np.testing.assert_allclose(tmu.numpy(), np.asarray(mu_j), rtol=0, atol=1e-6)
     np.testing.assert_allclose(tnu.numpy(), np.asarray(nu_j), rtol=0, atol=1e-6)
@@ -65,10 +83,28 @@ def test_scalars_match_jax_step_scalars():
     for count in (1, 2, 100):
         t = jnp.float32(count)
         want = [1e-2, 1.0 - jnp.float32(0.9) ** t, 1.0 - jnp.float32(0.999) ** t]
-        got = adam_scalars(1e-2, 0.9, 0.999, count)
+        got = _scal(count).numpy()
         # float32 pow on two backends: within 2 ulp of 1
         np.testing.assert_allclose(got, np.asarray(want, np.float32),
                                    rtol=2.5e-7, atol=0)
+
+
+@pytest.mark.parametrize("b1, b2", [(0.9, 0.999), (0.8, 0.99)])
+def test_device_scal_matches_jax_scal_at_every_count(b1, b2):
+    # the count the kernel reads scal at is an int32 tensor: every count of
+    # a 2000-step run, formed as a step forms it (count + 1 in place)
+    counts = np.arange(1, 2001)
+    want = _jax_scal(counts, b1=b1, b2=b2)
+    hyper = adam_hyper(1e-2, b1, b2, "cpu")
+    count = torch.zeros((), dtype=torch.int32)
+    got = []
+    for _ in counts:
+        count.add_(1)
+        got.append(adam_scal(count, hyper).numpy())
+    got = np.stack(got)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    # bit for bit: lr, and both bias corrections at every count
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def _tree(rng):
@@ -96,6 +132,7 @@ def test_three_steps_match_optax_fused_adam():
         for k, p in tparams.items():
             p.grad = torch.from_numpy(g[k])
         topt.step()
+    assert topt.count.dtype == torch.int32
     assert topt.count == int(state.count) == 3
     for k, p in tparams.items():
         # eps = 1e-15 makes step 1 a sign step of size lr, so a float32
@@ -111,7 +148,7 @@ def test_three_steps_match_optax_fused_adam():
 
 def test_cpu_tensor_takes_plain_version_without_counting():
     p, g, mu, nu = _leaf(4096, seed=1)
-    args = adam_scalars(1e-2, 0.9, 0.999, 3) + (0.9, 0.999, 1e-15)
+    args = (_scal(3), 0.9, 0.999, 1e-15)
     a = [torch.from_numpy(x.copy()) for x in (p, mu, nu)]
     b = [torch.from_numpy(x.copy()) for x in (p, mu, nu)]
     before = adam_update_leaves_.launches
@@ -125,13 +162,13 @@ def test_cpu_tensor_takes_plain_version_without_counting():
 def test_wrapper_rejects_float64():
     x = torch.zeros(8, dtype=torch.float64)
     with pytest.raises(ValueError):
-        adam_update_(x, x, x, x, 1e-2, 0.1, 0.001, 0.9, 0.999, 1e-15)
+        adam_update_(x, x, x, x, _scal(1), 0.9, 0.999, 1e-15)
 
 
 def test_leaves_on_cpu_take_plain_version_leaf_by_leaf():
     # a bf16 p among float32 ones; the CPU never counts a launch
     rng = np.random.default_rng(4)
-    args = adam_scalars(1e-2, 0.9, 0.999, 2) + (0.9, 0.999, 1e-15)
+    args = (_scal(2), 0.9, 0.999, 1e-15)
     leaves, want = [], []
     for n, dtype in ((1, torch.float32), (1023, torch.bfloat16), (4096, torch.float32)):
         p = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dtype)

@@ -1,0 +1,265 @@
+"""The port's training chunk (``Trainer.make_train_chunk``), the
+counterpart of the JAX trainer's one-dispatch chunk (``_make_train_chunk``
+/ ``_make_chunk_body``, virus_nerf_tpu/training/trainer.py:428-519).
+
+On the card a chunk is replays of CUDA graphs of its pieces (a group: the
+grid update, then ``update_interval`` steps; one step; one grid update); on
+the CPU the same piece bodies run eagerly.  Here, on the CPU:
+
+- the bodies against ``run_steps`` (the step-by-step loop), bit for bit:
+  losses and every metric, parameters, Adam moments and count, grid, USS
+  statistics and the generator's state, on a small bench-like
+  configuration (16 steps, grid updates at 0 and 8) entered aligned, at
+  step 3, in chunks shorter than the interval, past the NGP warm-up, with
+  "closest" sampling and under real-time simulation;
+- every state tensor keeps its address across a chunk (a replay reads
+  what the last one wrote);
+- the JAX chunk run twice against the port's chunks fed the JAX chunk's
+  draws in the chunk's order (the key splits of
+  ``tests/test_torch_trainer_options.py``'s ``Pair``), losses per step
+  within 1e-5, with and without C8's witness (the table entries one
+  side's Adam step moved and the other's did not, set equal after each
+  step);
+- the port's bench (``virus_nerf_tpu_torch.bench``) at a tiny size on the
+  CPU: its JSON line's keys, ``kernels_ok`` None off the card, and its
+  entry point refusing to run without a card.
+"""
+
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from test_torch_trainer_options import (
+    DATA_KW,
+    Pair,
+    _port_batch,
+    _sync_stepped_apart,
+    options_config,
+)
+from virus_nerf_tpu.data import make_synthetic_dataset as j_make_dataset
+from virus_nerf_tpu.training import Trainer as JTrainer
+from virus_nerf_tpu_torch import bench
+from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+from virus_nerf_tpu_torch.training.trainer import Trainer, _state_tensors
+
+torch.set_num_threads(1)
+
+
+def chunk_config(grid="occ", closest=False, real_time=False):
+    """Bench-like at a small size: constant-dt march with a sample budget,
+    the USS/ToF pixel shares, the VIRUS grid updated every 8 steps (at 0
+    and 8 of 16); the NGP grid every 4 after a 4-step warm-up."""
+    cfg = options_config(scale=0.5, grid=grid, budget=128 * 12,
+                         closest=closest, real_time=real_time)
+    cfg.occ_grid.update_interval = 8
+    cfg.training.max_steps = 16
+    cfg.evaluation.eval_every_n_steps = 8
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def pdata():
+    ds, scene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
+    return ds, scene
+
+
+def _metrics(pending, keys):
+    return torch.stack([torch.stack([m[k].float() for k in keys])
+                        for _, m in pending])
+
+
+def assert_states_equal(a, b):
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+        for x, y in zip(a.optimizer._moments(p), b.optimizer._moments(q)):
+            assert torch.equal(x, y), name
+    assert a.optimizer.count.dtype == torch.int32
+    assert int(a.optimizer.count) == int(b.optimizer.count) == a.step == b.step
+    for f, x, y in zip(a.grid._fields, a.grid, b.grid):
+        assert (torch.equal(x, y) if torch.is_tensor(x) else x == y), f
+    assert (a.uss_stats is None) == (b.uss_stats is None)
+    if a.uss_stats is not None:
+        for f, x, y in zip(a.uss_stats._fields, a.uss_stats, b.uss_stats):
+            assert torch.equal(x, y), f
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+# entry: steps run step by step first; then the chunks' sizes
+ENTRIES = {
+    "aligned": (0, (8, 8)),
+    "unaligned_at_3": (3, (13,)),
+    "shorter_than_the_interval": (0, (5, 11)),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_chunk_bodies_are_run_steps_bit_for_bit(pdata, entry):
+    pre, sizes = ENTRIES[entry]
+    tr = Trainer(chunk_config(), *pdata[:1], scene=pdata[1], device="cpu")
+    want, got = tr.init_state(0), tr.init_state(0)
+    tr.run_steps(want, pre)
+    tr.run_steps(got, pre)
+    pending = tr.run_steps(want, sum(sizes))
+    keys, rows = None, []
+    for n in sizes:
+        first, keys, m = tr.make_train_chunk(n)(got)
+        assert first == pre + sum(r.shape[0] for r in rows)
+        assert m.shape == (n, len(keys))
+        rows.append(m)
+    assert torch.equal(torch.cat(rows), _metrics(pending, keys))
+    assert want.grid.update_step == 2
+    assert_states_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["ngp_after_warm_up", "closest", "real_time"])
+def test_chunk_options_are_run_steps_bit_for_bit(pdata, case):
+    cfg = chunk_config(grid="ngp" if case.startswith("ngp") else "occ",
+                       closest=case == "closest", real_time=case == "real_time")
+    tr = Trainer(cfg, pdata[0], scene=pdata[1], device="cpu")
+    want, got = tr.init_state(0), tr.init_state(0)
+    pre = cfg.ngp_grid.warmup_steps if case.startswith("ngp") else 0
+    tr.run_steps(want, pre)
+    tr.run_steps(got, pre)
+    n = 16 - pre
+    # the images taken by 4 s, then all of them (real time): each step's
+    # time, which the grid update at that step reads too
+    ets = np.where(np.arange(n) < n // 2, 4.0, 100.0) if case == "real_time" else None
+    clock = (lambda: None) if ets is None else (lambda: float(ets[want.step - pre]))
+    pending = tr.run_steps(want, n, clock)
+    first, keys, m = tr.make_train_chunk(n)(got, ets)
+    assert first == pre and torch.equal(m, _metrics(pending, keys))
+    assert_states_equal(got, want)
+    if case == "closest":
+        assert int(got.uss_stats.counts.sum()) > 0
+    if case.startswith("ngp"):
+        assert float(got.grid.threshold) > 0
+
+
+def test_chunk_writes_the_state_in_place(pdata):
+    cfg = chunk_config(closest=True)
+    tr = Trainer(cfg, pdata[0], scene=pdata[1], device="cpu")
+    state = tr.init_state(0)
+    tensors = _state_tensors(state)
+    addresses = [t.data_ptr() for t in tensors]
+    before = [t.clone() for t in tensors]
+    tr.make_train_chunk(9)(state)
+    after = _state_tensors(state)
+    assert [t.data_ptr() for t in after] == addresses
+    assert all(a is b for a, b in zip(after, tensors))
+    # and they moved: parameters, moments, count, grid, statistics
+    assert sum(not torch.equal(a, b) for a, b in zip(after, before)) >= len(after) - 2
+
+
+def test_chunk_refuses_a_wrong_length(pdata):
+    tr = Trainer(chunk_config(real_time=True), pdata[0], scene=pdata[1],
+                 device="cpu")
+    with pytest.raises(ValueError, match="elapse times"):
+        tr.make_train_chunk(4)(tr.init_state(0), [1.0, 2.0])
+    with pytest.raises(ValueError):
+        tr.make_train_chunk(0)
+
+
+@pytest.fixture(scope="module")
+def data():
+    jds, jscene, _ = j_make_dataset(**DATA_KW)
+    pds, pscene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
+    return jds, jscene, pds, pscene
+
+
+class ChunkPair(Pair):
+    """``Pair`` on the bench-like chunk configuration."""
+
+    def __init__(self, jds, jscene, pds, pscene):
+        self.cfg = chunk_config()
+        self.jds, self.pds = jds, pds
+        self.jt = JTrainer(self.cfg, jds, scene=jscene)
+        self.pt = Trainer(self.cfg, pds, scene=pscene, device="cpu")
+        self.train_body = jax.jit(self.jt._make_train_body())
+        self.occ_body = jax.jit(self.jt._make_occ_body())
+        self.et = None
+
+
+@pytest.mark.parametrize("witness", [False, True])
+def test_chunk_losses_match_the_jax_chunk(data, witness):
+    pair = ChunkPair(*data)
+    js0, ps = pair.start(seed=1)
+    # the JAX chunk of 8, run twice (one dispatch each)
+    jchunk = pair.jt._make_train_chunk(8)
+    js, losses_j = js0, []
+    for _ in range(2):
+        js, mj = jchunk(js, pair.jds, 0.0)
+        losses_j += np.asarray(mj["loss"]).tolist()
+    # the port's chunks, their bodies fed the JAX chunk's draws in the
+    # chunk's order: the JAX bodies the chunk scans, stepped alongside
+    ref = {"js": js0}
+    lr = pair.cfg.training.lr
+    synced = []
+
+    def grid_update(state, elapse_time=None, group=None):
+        ref["js"] = pair.grid_update(ref["js"], state, state.step)
+
+    def train_step(state, elapse_time=None, group=None):
+        batch, _, noise = pair.train_draws(ref["js"])
+        ref["js"], _ = pair.train_body(ref["js"], pair.jds, None)
+        m = pair.pt.train_step_on(state, _port_batch(batch), noise)
+        if witness:
+            synced.append(_sync_stepped_apart(state, ref["js"], lr)[0])
+        return m
+
+    pair.pt.grid_update, pair.pt.train_step = grid_update, train_step
+    losses_p = []
+    for _ in range(2):
+        _, keys, m = pair.pt.make_train_chunk(8)(ps)
+        losses_p += m[:, keys.index("loss")].tolist()
+    assert ps.step == 16 and ps.grid.update_step == 2
+    assert int(ps.optimizer.count) == int(js.opt_state.count) == 16
+    # the chunk's draws are the scanned bodies' own: the reference stepped
+    # the same keys
+    np.testing.assert_array_equal(np.asarray(ref["js"].key), np.asarray(js.key))
+    np.testing.assert_allclose(losses_p, losses_j, rtol=1e-5)
+    if witness:
+        assert max(synced) > 0
+
+
+def test_run_bench_tiny_on_cpu():
+    cfg = bench.bench_config()
+    # the protocol at a tiny width: 4 x F=2 of 2^12 rows, a 32^3 grid,
+    # 128 rays; one warm-up chunk of 8 and one timed
+    cfg.model.hash_levels, cfg.model.hash_features_per_level = 4, 2
+    cfg.model.hash_log2_T, cfg.model.hash_max_res, cfg.model.grid_size = 12, 64, 32
+    cfg.training.batch_size, cfg.training.sample_budget = 128, 128 * 28
+    cfg.occ_grid.batch_size = 64
+    out = bench.run_bench(cfg, warmup_steps=8, timed_chunks=1, device="cpu",
+                          chunk=8)
+    assert list(out) == ["metric", "value", "unit", "vs_baseline", "kernels_ok"]
+    assert out["metric"] == "train_rays_per_sec" and out["unit"] == "rays/s"
+    assert out["kernels_ok"] is None and out["value"] > 0
+    assert out["vs_baseline"] == round(
+        out["value"] / (500 * 4096 / 45.0), 3)
+
+
+def test_bench_config_is_bench_py_s(monkeypatch):
+    cfg = bench.bench_config()
+    m, t = cfg.model, cfg.training
+    assert (m.grid_type, m.grid_size, m.scale, m.hash_levels,
+            m.hash_features_per_level, m.hash_log2_T, m.hash_max_res) == (
+        "occ", 128, 0.5, 8, 4, 19, 1024)
+    assert (t.batch_size, t.max_samples_per_ray, t.march_candidates,
+            t.sample_budget, t.sensors) == (4096, 128, 1024, 4096 * 28,
+                                            ["USS", "ToF"])
+    assert (cfg.occ_grid.batch_size, cfg.occ_grid.update_interval) == (1024, 8)
+    assert (bench.CHUNK, bench.WARMUP_STEPS, bench.TIMED_CHUNKS) == (24, 288, 8)
+    wide = bench.bench_config(1.0, 16, 2)
+    assert (wide.model.scale, wide.model.hash_levels,
+            wide.model.hash_features_per_level) == (1.0, 16, 2)
+    # the entry point runs on the card alone
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(["--scale", "0.5"])
+
+
+if __name__ == "__main__":
+    sys.exit(pytest.main([__file__, "-q"]))

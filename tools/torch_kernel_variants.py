@@ -322,7 +322,9 @@ def main():
                    "bf16 table": [(params[0][0], torch.bfloat16)]}
     adam_cases = {case: adam_leaves(shapes, gen, dev)
                   for case, shapes in adam_shapes.items()}
-    args = fused_adam.adam_scalars(1e-2, 0.9, 0.999, 3) + (0.9, 0.999, 1e-15)
+    scal = fused_adam.adam_scal(torch.tensor(3, dtype=torch.int32, device=dev),
+                                fused_adam.adam_hyper(1e-2, 0.9, 0.999, dev))
+    args = (scal, 0.9, 0.999, 1e-15)
     runs = [("B2", name, lib) for name, lib in adam_libs.items()]
     runs += [("B3", name, lib) for name, lib in rows_libs.items()]
     runs += [("B5", name, lib) for name, lib in widen_libs.items()]

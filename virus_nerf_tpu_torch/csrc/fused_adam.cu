@@ -8,17 +8,18 @@
 //     nu = b2 * nu + (1 - b2) * g * g
 //     d  = -lr * (mu / bc1) / (sqrt(nu / bc2) + eps)
 //
-// with lr, bc1 = 1 - b1^t and bc2 = 1 - b2^t computed on the host in
-// float32.  Unlike the TPU kernel, which writes a separate delta that
+// with scal = [lr, bc1 = 1 - b1^t, bc2 = 1 - b2^t], float32, read from device
+// memory as the TPU kernel reads its `scal_ref` (the step count t lives on
+// the device, and `adam_scal` forms scal there each step), so a CUDA graph
+// that holds the launch replays each step's own bias correction.  Unlike the TPU kernel, which writes a separate delta that
 // `optax.apply_updates` then adds, this pass reads p, g, mu, nu and writes
 // p += d, mu and nu in place: the same result as `apply_updates(p, d)`,
 // without the d buffer.
 //
 // Every step is rounded as its own float32 operation (no contraction into
 // fused multiply-adds), in the order of the plain PyTorch version
-// `adam_update_plain_`; the two agree to an ulp (PyTorch divides by a host
-// scalar as a multiply by its reciprocal).  (1 - b1) and (1 - b2) arrive
-// precomputed: the plain version rounds the double difference once, which
+// `adam_update_plain_`, which takes the same scal tensor.  (1 - b1) and
+// (1 - b2) arrive precomputed: the plain version rounds the double difference once, which
 // a float32 subtraction here would not reproduce.
 //
 // A bf16 leaf (the `bfloat16` compute mode's hash table) keeps float32
@@ -79,6 +80,18 @@ struct Leaves {
 struct Hyper {
   float lr, bc1, bc2, b1, omb1, b2, omb2, eps;
 };
+
+// the launch's scalars: scal in device memory, the constants by value
+struct HyperArgs {
+  const float* scal;  // lr, bc1, bc2
+  float b1, omb1, b2, omb2, eps;
+};
+
+__device__ __forceinline__ Hyper load_hyper(const HyperArgs& a) {
+  return Hyper{__ldg(a.scal), __ldg(a.scal + 1), __ldg(a.scal + 2),
+               a.b1,           a.omb1,          a.b2,
+               a.omb2,         a.eps};
+}
 
 __device__ __forceinline__ void adam(float g, float& m, float& v, float& p,
                                      const Hyper& h) {
@@ -203,7 +216,8 @@ __device__ __forceinline__ void chunk(const Leaf& L, long long j,
 }
 
 __global__ void __launch_bounds__(kThreads)
-    fused_adam_kernel(const __grid_constant__ Leaves L, const Hyper h) {
+    fused_adam_kernel(const __grid_constant__ Leaves L, const HyperArgs args) {
+  const Hyper h = load_hyper(args);
   const int c = blockIdx.x;
   int l = 0;
   while (c >= L.first_chunk[l + 1]) ++l;
@@ -223,14 +237,15 @@ extern "C" int vn_fused_adam_chunk() { return kChunk; }
 
 // ptrs: p, g, mu, nu of each leaf (4 * count pointers); plan: n, head, body
 // of each leaf (3 * count); flags: bf16 p, vec of each leaf (2 * count);
-// all host memory, packed into the kernel's parameters.  A leaf's chunk
+// all host memory, packed into the kernel's parameters; scal: lr, bc1,
+// bc2 as 3 float32 in device memory.  A leaf's chunk
 // count is max(1, ceil(body / kChunk)); leaves of 0 elements take none.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // more than kMaxLeaves leaves).
 extern "C" int vn_fused_adam(void* const* ptrs, const long long* plan,
-                             const int* flags, int count, float lr, float bc1,
-                             float bc2, float b1, float omb1, float b2,
-                             float omb2, float eps, cudaStream_t stream) {
+                             const int* flags, int count, const float* scal,
+                             float b1, float omb1, float b2, float omb2,
+                             float eps, cudaStream_t stream) {
   if (count < 0 || count > kMaxLeaves) return cudaErrorInvalidValue;
   Leaves L;
   L.first_chunk[0] = 0;
@@ -251,7 +266,7 @@ extern "C" int vn_fused_adam(void* const* ptrs, const long long* plan,
   }
   const int total = L.first_chunk[count];
   if (total == 0) return cudaSuccess;
-  const Hyper h{lr, bc1, bc2, b1, omb1, b2, omb2, eps};
+  const HyperArgs h{scal, b1, omb1, b2, omb2, eps};
   fused_adam_kernel<<<total, kThreads, 0, stream>>>(L, h);
   return cudaGetLastError();
 }

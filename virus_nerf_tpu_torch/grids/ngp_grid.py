@@ -116,7 +116,7 @@ def ngp_grid_update_on(state: NGPGridState, density_fn: Callable, draws, *,
                                     scale)
         # xyz + jitter * half rounded once, as XLA fuses it under jit
         sigma = _density(density_fn,
-                         torch.addcmul(xyz, jitter, xyz.new_tensor(half)))
+                         torch.addcmul(xyz, jitter, xyz.new_full((), half)))
         old = grid[c, idx]
         # EMA floor at the fresh density; invisible (-1) cells stay pinned
         # (reference: modules/ngp_grid.py:138-141)

@@ -84,7 +84,7 @@ def _linspace01(n: int, device):
     out = torch.arange(n, dtype=torch.float32, device=device) * float(
         np.float32(1.0) / np.float32(n - 1)
     )
-    out[-1] = 1.0
+    out[-1].fill_(1.0)  # a fill: no host value copied to the device
     return out
 
 

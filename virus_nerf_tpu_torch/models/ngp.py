@@ -49,7 +49,11 @@ from virus_nerf_tpu_torch.ops.hash_encoder import (
     hash_encode_xor,
 )
 from virus_nerf_tpu_torch.ops.sh import sh_encode
-from virus_nerf_tpu_torch.ops.triplane import TriPlaneSpec, triplane_encode
+from virus_nerf_tpu_torch.ops.triplane import (
+    TriPlaneSpec,
+    TriPlaneTensors,
+    triplane_encode,
+)
 
 ENCODER_TYPES = ("hash", "triplane")
 HASH_VARIANTS = ("additive", "xor")
@@ -153,8 +157,13 @@ class NGPModel(nn.Module):
         return max(1 + int(np.ceil(np.log2(2.0 * self.scale))), 1)
 
     def _spec_consts(self, device):
-        if self._consts is None or self._consts.scales.device != device:
-            self._consts = _SpecTensors(self.hash_spec, device)
+        """The encoder's constants on ``device``, made at first use and
+        kept (every step reads the same tensors)."""
+        if self._consts is None or self._consts.device != device:
+            self._consts = (
+                TriPlaneTensors(self.triplane_spec, device)
+                if self.pos_encoder_type == "triplane"
+                else _SpecTensors(self.hash_spec, device))
         return self._consts
 
     def _run(self, layers, h):
@@ -173,9 +182,9 @@ class NGPModel(nn.Module):
         # "mixed": the float32 table is cast inside the graph, so its
         # gradient comes back through the cast, bf16-rounded
         table = self.pos_table.to(self._dtype)
-        if self.pos_encoder_type == "triplane":
-            return triplane_encode(table, x_unit, self.triplane_spec)
         consts = self._spec_consts(x_unit.device)
+        if self.pos_encoder_type == "triplane":
+            return triplane_encode(table, x_unit, self.triplane_spec, consts)
         if self.hash_variant == "xor":
             return hash_encode_xor(table, x_unit, self.hash_spec, consts)
         return hash_encode(

@@ -67,9 +67,9 @@ _SIGNATURES = {
     "vn_widen_tile_rows": (_I,),
     "vn_widen_plane": (),
     # ptrs (p, g, mu, nu per leaf), plan (n, head, body per leaf), flags
-    # (bf16, vec per leaf), leaves, lr, bc1, bc2, b1, one_minus_b1, b2,
-    # one_minus_b2, eps, stream
-    "vn_fused_adam": (_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    # (bf16, vec per leaf), leaves, scal (lr, bc1, bc2 on the device), b1,
+    # one_minus_b1, b2, one_minus_b2, eps, stream
+    "vn_fused_adam": (_P, _P, _P, _I, _P, _F, _F, _F, _F, _F, _P),
     "vn_fused_adam_max_leaves": (),
     "vn_fused_adam_chunk": (),
     # rays_o, rays_d, t1, t2, noise, grid, numel, gs, cascades, scale, esf,

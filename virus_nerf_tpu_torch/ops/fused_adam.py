@@ -7,7 +7,12 @@ TPU kernel is ``_adam_kernel`` (:37).  The CUDA kernel that replaces it is
 
 Semantics are ``optax.adam(lr, eps=eps)``: b1/b2 defaults, bias correction,
 eps outside the sqrt — the update rule of the reference's
-``torch.optim.Adam`` (training/trainer.py:49-57).  On the card
+``torch.optim.Adam`` (training/trainer.py:49-57).  The step count is an
+int32 tensor on the device and the kernel reads ``scal = [lr, 1 - b1^t,
+1 - b2^t]`` from device memory, as the TPU kernel reads its ``scal_ref``
+(fused_adam.py:37, :118-131): :func:`adam_scal` forms it on the device
+each step, so eager steps and the replays of a CUDA graph that holds the
+step (``Trainer.make_train_chunk``) take one route.  On the card
 :class:`FusedAdam` updates all leaves of a group (the hash table and the
 MLP weights) with one launch of the kernel through
 :func:`adam_update_leaves_`, up to ``ADAM_MAX_LEAVES`` leaves a launch.
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from virus_nerf_tpu_torch.ops import _build
+from virus_nerf_tpu_torch.ops.launch_counts import register
 
 # constants of csrc/fused_adam.cu (a card test compares them with the
 # library's): leaves of one launch, elements of one CTA's chunk
@@ -37,19 +43,27 @@ ADAM_MAX_LEAVES = 16
 ADAM_CHUNK = 2048
 
 
-def adam_scalars(lr: float, b1: float, b2: float, count: int):
-    """(lr, bc1, bc2) as float32 values, computed on the host in float32
-    the way the JAX package computes them (fused_adam.py:123-131)."""
-    t = np.float32(count)
-    one = np.float32(1.0)
-    bc1 = one - np.float32(b1) ** t
-    bc2 = one - np.float32(b2) ** t
-    return float(np.float32(lr)), float(bc1), float(bc2)
+def adam_hyper(lr: float, b1: float, b2: float, device) -> torch.Tensor:
+    """(3,) float32 [lr, b1, b2] on ``device``: the constants
+    :func:`adam_scal` reads (made once, outside any graph capture)."""
+    return torch.tensor([lr, b1, b2], dtype=torch.float32, device=device)
 
 
-def adam_update_plain_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
+def adam_scal(count: torch.Tensor, hyper: torch.Tensor) -> torch.Tensor:
+    """(3,) float32 ``[lr, 1 - b1**t, 1 - b2**t]`` at the step count t (an
+    int32 0-dim tensor) on its device, with ``hyper`` from
+    :func:`adam_hyper`: JAX's ``scal`` (fused_adam.py:123-131), formed
+    from device memory alone, so a captured step replays with the count
+    of each replay."""
+    t = count.float()
+    return torch.cat([hyper[:1], 1.0 - torch.pow(hyper[1:], t)])
+
+
+def adam_update_plain_(p, g, mu, nu, scal, b1, b2, eps):
     """Plain PyTorch version; updates p, mu and nu in place (a bf16 p as
-    ``p = bf16(float32(p) + d)``)."""
+    ``p = bf16(float32(p) + d)``) with lr, bc1 and bc2 read from the (3,)
+    float32 ``scal`` on the leaves' device."""
+    lr, bc1, bc2 = scal.unbind()
     mu2 = b1 * mu + (1.0 - b1) * g
     nu2 = b2 * nu + (1.0 - b2) * g * g
     d = -lr * (mu2 / bc1) / (torch.sqrt(nu2 / bc2) + eps)
@@ -61,10 +75,10 @@ def adam_update_plain_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
         p.copy_(p.float() + d)
 
 
-def adam_update_leaves_plain_(leaves, lr, bc1, bc2, b1, b2, eps):
+def adam_update_leaves_plain_(leaves, scal, b1, b2, eps):
     """The plain version over a list of (p, g, mu, nu) leaves."""
     for p, g, mu, nu in leaves:
-        adam_update_plain_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps)
+        adam_update_plain_(p, g, mu, nu, scal, b1, b2, eps)
 
 
 def _f32(x: float) -> float:
@@ -101,7 +115,16 @@ def _check_leaf(p, g, mu, nu):
             raise ValueError("adam_update_: p, g, mu, nu must share device and shape")
 
 
-def _adam_launch_(leaves, lr, bc1, bc2, b1, b2, eps):
+def _check_scal(scal, device):
+    if (not torch.is_tensor(scal) or scal.dtype != torch.float32
+            or tuple(scal.shape) != (3,) or not scal.is_contiguous()):
+        raise ValueError("adam_update_: want scal as a contiguous (3,) "
+                         "float32 tensor (adam_scal)")
+    if scal.device != device:
+        raise ValueError(f"adam_update_: scal on {scal.device}, leaves on {device}")
+
+
+def _adam_launch_(leaves, scal, b1, b2, eps):
     """One launch of the kernel for at most ``ADAM_MAX_LEAVES`` leaves."""
     k = len(leaves)
     ptrs, plan, flags = [], [], []
@@ -114,7 +137,7 @@ def _adam_launch_(leaves, lr, bc1, bc2, b1, b2, eps):
         flags += [int(bf16), int(vec)]
     err = _build.library().vn_fused_adam(
         (ctypes.c_void_p * (4 * k))(*ptrs), (ctypes.c_longlong * (3 * k))(*plan),
-        (ctypes.c_int * (2 * k))(*flags), k, lr, bc1, bc2, _f32(b1),
+        (ctypes.c_int * (2 * k))(*flags), k, scal.data_ptr(), _f32(b1),
         _f32(1.0 - b1), _f32(b2), _f32(1.0 - b2), _f32(eps),
         torch.cuda.current_stream(leaves[0][0].device).cuda_stream,
     )
@@ -122,9 +145,11 @@ def _adam_launch_(leaves, lr, bc1, bc2, b1, b2, eps):
     adam_update_leaves_.launches += 1
 
 
-def adam_update_leaves_(leaves, lr, bc1, bc2, b1, b2, eps):
+def adam_update_leaves_(leaves, scal, b1, b2, eps):
     """One Adam step of every (p, g, mu, nu) leaf, in place (p += d; mu, nu
-    updated), all with the same scalars.
+    updated), all with the same scalars: lr, bc1 and bc2 from ``scal``, a
+    (3,) float32 tensor on the leaves' device (:func:`adam_scal`), which
+    the kernel reads from device memory.
 
     On the card one launch of ``csrc/fused_adam.cu`` updates them all (one
     more for every further ``ADAM_MAX_LEAVES``), or raises; on the CPU each
@@ -141,33 +166,40 @@ def adam_update_leaves_(leaves, lr, bc1, bc2, b1, b2, eps):
     if not leaves:
         return
     device = leaves[0][0].device
+    _check_scal(scal, device)
     if device.type == "cuda":
         for i in range(0, len(leaves), ADAM_MAX_LEAVES):
-            _adam_launch_(leaves[i:i + ADAM_MAX_LEAVES], lr, bc1, bc2, b1, b2, eps)
+            _adam_launch_(leaves[i:i + ADAM_MAX_LEAVES], scal, b1, b2, eps)
     elif device.type == "cpu":
-        adam_update_leaves_plain_(leaves, lr, bc1, bc2, b1, b2, eps)
+        adam_update_leaves_plain_(leaves, scal, b1, b2, eps)
     else:
         raise ValueError(f"adam_update_: unsupported device {device}")
 
 
 adam_update_leaves_.launches = 0
+register(adam_update_leaves_)
 
 
-def adam_update_(p, g, mu, nu, lr, bc1, bc2, b1, b2, eps):
+def adam_update_(p, g, mu, nu, scal, b1, b2, eps):
     """One Adam step of one leaf, in place: :func:`adam_update_leaves_` on
     ``[(p, g, mu, nu)]`` (its ``.launches`` counts the launch)."""
-    adam_update_leaves_([(p, g, mu, nu)], lr, bc1, bc2, b1, b2, eps)
+    adam_update_leaves_([(p, g, mu, nu)], scal, b1, b2, eps)
 
 
 class FusedAdam(torch.optim.Optimizer):
-    """``optax.adam(lr, b1, b2, eps)`` with one shared step count; on the
-    card one kernel launch a step updates every leaf of a group (see module
-    doc)."""
+    """``optax.adam(lr, b1, b2, eps)`` with one shared step count
+    ``count``, an int32 0-dim tensor on the parameters' device; on the card
+    one kernel launch a step updates every leaf of a group (see module
+    doc).  A step reads and writes device memory only, so a CUDA graph may
+    hold it."""
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
-        self.count = 0
+        device = self.param_groups[0]["params"][0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self._hyper = [adam_hyper(g["lr"], g["b1"], g["b2"], device)
+                       for g in self.param_groups]
 
     def _moments(self, p):
         st = self.state[p]
@@ -180,20 +212,17 @@ class FusedAdam(torch.optim.Optimizer):
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("FusedAdam.step takes no closure")
-        self.count += 1
-        for group in self.param_groups:
-            lr, bc1, bc2 = adam_scalars(
-                group["lr"], group["b1"], group["b2"], self.count
-            )
+        self.count.add_(1)
+        for group, hyper in zip(self.param_groups, self._hyper):
             leaves = [(p, p.grad.float().contiguous(), *self._moments(p))
                       for p in group["params"] if p.grad is not None]
-            adam_update_leaves_(leaves, lr, bc1, bc2, group["b1"], group["b2"],
-                                group["eps"])
+            adam_update_leaves_(leaves, adam_scal(self.count, hyper),
+                                group["b1"], group["b2"], group["eps"])
 
     def load_moments(self, named_params, count: int, mu: dict, nu: dict):
         """Set the step count and the moments from dicts keyed like
         ``named_params`` (see ``convert.adam_state_from_jax``)."""
-        self.count = int(count)
+        self.count.fill_(int(count))
         for name, p in named_params:
             m, v = self._moments(p)
             m.copy_(mu[name])

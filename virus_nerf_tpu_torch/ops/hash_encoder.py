@@ -207,13 +207,16 @@ def bf16_rounded_levels(spec: HashGridSpec):
 
 
 class _SpecTensors:
-    """Per-level constants of a spec as tensors on one device."""
+    """Per-level constants of a spec as tensors on one device, made once:
+    a step builds no tensor from host values, so a CUDA graph can hold it
+    (``Trainer.make_train_chunk``)."""
 
     def __init__(self, spec: HashGridSpec, device):
         def t(x, dtype):
             return torch.tensor(x, dtype=dtype, device=device)
 
         self.scales = t(spec.scales, torch.float32)[:, None, None]  # (L,1,1)
+        self.half = t(0.5, torch.float32)  # () the lattice's half-cell shift
         self.sizes = t(spec.sizes, torch.long)[:, None]  # (L,1)
         self.offsets = t(spec.offsets, torch.long)[:, None]
         self.stride_y = t(spec.stride_y, torch.long)[:, None]
@@ -239,7 +242,7 @@ class _SpecTensors:
             (lvls, spec.offsets[lvls[0]], size, tuple(int(o) for o in co[lvls[0]]))
             for size, _, _, lvls in same_size_level_groups(spec)
         ]
-        self.feat_dim, self.device = spec.feat_dim, device
+        self.feat_dim, self.device = spec.feat_dim, torch.device(device)
         self._f32_slabs = None
 
     def f32_slabs(self):
@@ -279,8 +282,7 @@ def _grid_positions(c: _SpecTensors, xyz):
     # pos = xyz * scale + 0.5 in float32, rounded once as a fused
     # multiply-add: the rounding XLA's CPU compiler gives the JAX function
     # under jit
-    half = torch.tensor(0.5, dtype=torch.float32, device=xyz.device)
-    pos = torch.addcmul(half, xyzT[None], c.scales)  # (L, 3, N)
+    pos = torch.addcmul(c.half, xyzT[None], c.scales)  # (L, 3, N)
     pos_grid = torch.floor(pos)
     frac = pos - pos_grid
     # float -> uint32 saturates at 0 in XLA; a negative position (noisy
@@ -586,9 +588,11 @@ def _xor_gather_combine(table, rows, w, spec: HashGridSpec):
     return torch.cat(outs, dim=1)
 
 
-def xor_table_grad_streams(spec: HashGridSpec, rows, w, g):
+def xor_table_grad_streams(spec: HashGridSpec, rows, w, g,
+                           consts: _SpecTensors = None):
     """The segment sums of the XOR table gradient, in table-row order
-    (hash_encoder.py:984-1011).
+    (hash_encoder.py:984-1011); ``consts``: the spec's tensors on rows'
+    device (built here if None).
 
     Yields ``(sv, sk, n_rows)``: the (G, K, F) values and (G, K) int32
     sorted keys of one ``group_segment_sum_t_sorted`` call.  Its (G,
@@ -600,8 +604,8 @@ def xor_table_grad_streams(spec: HashGridSpec, rows, w, g):
     gv = (
         w[:, :, :, None] * g.reshape(n, L, F).float().transpose(0, 1)[:, None]
     ).reshape(L, 8 * n, F)
-    offsets = torch.tensor(spec.offsets, dtype=torch.long, device=rows.device)
-    local = (rows.long() - offsets[:, None, None]).reshape(L, 8 * n)
+    c = consts if consts is not None else _SpecTensors(spec, rows.device)
+    local = (rows.long() - c.offsets[:, :, None]).reshape(L, 8 * n)
     # one sort of every level's keys; a stable sort keeps equal keys in
     # stream order, so the sums are deterministic
     sk_all, perm = torch.sort(local, dim=1, stable=True)
@@ -634,14 +638,14 @@ def xor_table_grad_streams(spec: HashGridSpec, rows, w, g):
         yield merged()
 
 
-def _xor_table_grad(spec: HashGridSpec, rows, w, g):
+def _xor_table_grad(spec: HashGridSpec, rows, w, g, consts: _SpecTensors):
     """The (total_rows, F) table gradient: each segment sum writes its
     block of table rows in place (every row of the block)."""
     F = spec.feat_dim
     grad = torch.empty((spec.total_rows, F), dtype=torch.float32,
                        device=rows.device)
     r0 = 0
-    for sv, sk, n_rows in xor_table_grad_streams(spec, rows, w, g):
+    for sv, sk, n_rows in xor_table_grad_streams(spec, rows, w, g, consts):
         G = sk.shape[0]
         block = grad[r0:r0 + G * n_rows].view(G, n_rows, F)
         group_segment_sum_t_sorted(sv, sk, n_rows, out=block)
@@ -654,7 +658,7 @@ class _HashEncodeXor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, xyz, spec, consts):
         rows, w = xor_corner_rows(spec, xyz, consts)
-        ctx.spec, ctx.table_dtype = spec, table.dtype
+        ctx.spec, ctx.consts, ctx.table_dtype = spec, consts, table.dtype
         ctx.save_for_backward(rows, w)
         return _xor_gather_combine(table, rows, w, spec)
 
@@ -663,7 +667,7 @@ class _HashEncodeXor(torch.autograd.Function):
         # summed in float32, cast to the table's dtype at the end
         # (hash_encoder.py:1011)
         rows, w = ctx.saved_tensors
-        grad = _xor_table_grad(ctx.spec, rows, w, g)
+        grad = _xor_table_grad(ctx.spec, rows, w, g, ctx.consts)
         return grad.to(ctx.table_dtype), None, None, None
 
 

@@ -31,6 +31,7 @@ import torch
 import numpy as np
 
 from virus_nerf_tpu_torch.ops import _build
+from virus_nerf_tpu_torch.ops.launch_counts import register
 from virus_nerf_tpu_torch.ops.common import (
     SQRT3,
     SQRT3_2,
@@ -181,6 +182,7 @@ def march_lattice(t1, noise, exp_step_factor: float, grid_size: int,
 
 
 march_lattice.launches = 0
+register(march_lattice)
 
 
 def _select_from_valid(valid, ts_cand, dts, S: int):
@@ -372,6 +374,7 @@ def march_select(rays_o, rays_d, t1, t2, noise, occ_grid, *, cascades: int,
 
 
 march_select.launches = 0
+register(march_select)
 
 
 def march_rays_train(

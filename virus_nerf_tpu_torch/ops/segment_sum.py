@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from virus_nerf_tpu_torch.ops import _build
+from virus_nerf_tpu_torch.ops.launch_counts import register
 
 # VF values the kernel is instantiated for (csrc/segment_sum.cu)
 KERNEL_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
@@ -183,6 +184,7 @@ def segment_sum_sorted(vals, keys, n_rows: int):
 
 
 segment_sum_sorted.launches = 0
+register(segment_sum_sorted)
 
 
 # ------------------------------------------------------- row-major streams
@@ -292,6 +294,7 @@ def group_segment_sum_t_sorted(sv, sk, n_rows: int, out=None):
 
 
 group_segment_sum_t_sorted.launches = 0
+register(group_segment_sum_t_sorted)
 
 
 def group_segment_sum_t(vals, keys, n_rows: int):
@@ -419,3 +422,4 @@ def group_segment_sum_tsf_sorted(wgt, sk, n_rows: int, feat_dim: int):
 
 
 group_segment_sum_tsf_sorted.launches = 0
+register(group_segment_sum_tsf_sorted)

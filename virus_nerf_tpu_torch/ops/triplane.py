@@ -64,25 +64,40 @@ class TriPlaneSpec:
         return u.to(dtype)
 
 
-def triplane_cells(xyz, spec: TriPlaneSpec):
+class TriPlaneTensors:
+    """A spec's constants as tensors on one device, made once: a step builds
+    no tensor from host values, so a CUDA graph can hold it
+    (``Trainer.make_train_chunk``)."""
+
+    def __init__(self, spec: TriPlaneSpec, device):
+        self.device = torch.device(device)
+        self.res = torch.tensor(spec.resolutions, dtype=torch.float32,
+                                device=device)  # (L,)
+        self.half = torch.tensor(0.5, dtype=torch.float32, device=device)
+        # the plane projections (x,y), (y,z), (z,x) as column indices
+        self.proj = torch.tensor([[0, 1], [1, 2], [2, 0]], device=device)
+
+
+def triplane_cells(xyz, spec: TriPlaneSpec, consts: TriPlaneTensors = None):
     """Each query's bilinear corners on the three planes.
 
     Args:
         xyz: (N, 3) positions in [0, 1].
+        consts: the spec's tensors on xyz's device (built here if None).
     Returns:
         cell: (N, L, 3, 4) int64 cells of the max-res planes, bit for bit
             the JAX function's (triplane.py:84-100).
         w: (N, L, 3, 4) float32 bilinear weights.
     """
+    c = consts if consts is not None else TriPlaneTensors(spec, xyz.device)
     mr = spec.max_res
     x = xyz.float()
     # plane projections (x,y), (y,z), (z,x) -> (N, 3, 2)
-    proj = torch.stack([x[:, [0, 1]], x[:, [1, 2]], x[:, [2, 0]]], dim=1)
-    res = torch.tensor(spec.resolutions, dtype=torch.float32, device=x.device)
+    proj = x[:, c.proj]
+    res = c.res
     # pos = proj * (res - 1) + 0.5, rounded once as a fused multiply-add:
     # the rounding XLA's CPU compiler gives the JAX function under jit
-    half = torch.tensor(0.5, dtype=torch.float32, device=x.device)
-    pos = torch.addcmul(half, proj[:, None], (res - 1.0)[None, :, None, None])
+    pos = torch.addcmul(c.half, proj[:, None], (res - 1.0)[None, :, None, None])
     pg = torch.floor(pos)
     frac = pos - pg  # (N, L, 3, 2)
     corner = torch.arange(4, device=x.device)
@@ -98,7 +113,8 @@ def triplane_cells(xyz, spec: TriPlaneSpec):
     return cell, w
 
 
-def triplane_encode(planes, xyz, spec: TriPlaneSpec):
+def triplane_encode(planes, xyz, spec: TriPlaneSpec,
+                    consts: TriPlaneTensors = None):
     """Encode positions through the tri-plane grid.
 
     Args:
@@ -106,6 +122,7 @@ def triplane_encode(planes, xyz, spec: TriPlaneSpec):
             bf16, laid out [plane][cell][feat] (reference:
             modules/triplane.py:84-92).
         xyz: (N, 3) positions in [0, 1].
+        consts: the spec's tensors on xyz's device (built here if None).
     Returns:
         (N, levels * feat_dim) float32 embedding, ordered [feat][level]
         (reference: modules/triplane.py:43-44).
@@ -118,7 +135,8 @@ def triplane_encode(planes, xyz, spec: TriPlaneSpec):
     n = xyz.shape[0]
     mr, F = spec.max_res, spec.feat_dim
     planes3 = planes.reshape(3, mr * mr, F)
-    cell, w = triplane_cells(xyz, spec)
+    c = consts if consts is not None else TriPlaneTensors(spec, xyz.device)
+    cell, w = triplane_cells(xyz, spec, c)
     # a query outside [0, 1] (the grid update's jittered cells) reads out
     # of the planes: as XLA's gather, a negative cell counts from the end,
     # the cell is then clamped, and the gradient drops it

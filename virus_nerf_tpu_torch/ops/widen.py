@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from virus_nerf_tpu_torch.ops import _build
+from virus_nerf_tpu_torch.ops.launch_counts import register
 from virus_nerf_tpu_torch.ops.hash_encoder import (
     HashGridSpec,
     _SpecTensors,
@@ -142,6 +143,7 @@ def widen_slabs_group(table, row0: int, size: int, G: int, corner_offsets):
 
 
 widen_slabs_group.launches = 0
+register(widen_slabs_group)
 
 
 def wide_slabs(table, consts: _SpecTensors):

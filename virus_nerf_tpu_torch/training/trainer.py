@@ -11,6 +11,18 @@ the order of the JAX package's chunk body (trainer.py:484-510).
 Per-step metrics stay on the device and are fetched once per chunk of
 ``evaluation.eval_every_n_steps`` steps, not once per step.
 
+A chunk runs through :meth:`Trainer.make_train_chunk`, the counterpart of
+the JAX ``_make_train_chunk`` (trainer.py:428-519), which fuses a chunk
+into one device program.  On the card a chunk is replays of at most three
+CUDA graphs a state: the group (the grid update, then ``update_interval``
+steps, as the JAX aligned scan), one step and one grid update (an
+unaligned entry or a tail, as the JAX ``lax.cond`` path).  Each kind runs
+eagerly the first time (the warm-up), is captured the second time and is
+replayed from then on; on the CPU the same bodies run eagerly.  The
+bodies write the state's own tensors in place, so a replay reads what the
+last one wrote; a state whose tensors were rebound (``run_steps``, a
+loaded checkpoint, a new state) gets new graphs.
+
 Every training option of the JAX trainer is ported: the VIRUS ("occ") and
 the NGP ("ngp") grid, the position encoders (the additive hash with its
 routes ``hash_forward``/``hash_backward``, arguments of the trainer, the
@@ -58,8 +70,9 @@ import json
 import math
 import os
 import time
+import weakref
 from dataclasses import dataclass
-from typing import Dict, Optional, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -89,6 +102,7 @@ from virus_nerf_tpu_torch.models.ngp import NGPModel
 from virus_nerf_tpu_torch.models.renderer import render_rays
 from virus_nerf_tpu_torch.ops.common import MAX_SAMPLES
 from virus_nerf_tpu_torch.ops.fused_adam import FusedAdam
+from virus_nerf_tpu_torch.ops.launch_counts import GraphLaunches
 from virus_nerf_tpu_torch.training.loss import LossWeights, compute_loss
 from virus_nerf_tpu_torch.utils.distributed import (
     all_gather_cat,
@@ -140,6 +154,59 @@ def _full_device(device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def _state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor a step reads and writes: parameters, Adam moments and
+    count, grid, USS statistics."""
+    out = [state.optimizer.count]
+    for p in state.model.parameters():
+        out += [p, *state.optimizer._moments(p)]
+    out += [x for x in state.grid if torch.is_tensor(x)]
+    if state.uss_stats is not None:
+        out += list(state.uss_stats)
+    return out
+
+
+def _write_into(old, new):
+    """``new``'s tensors written into ``old``'s (a NamedTuple of the same
+    shapes): ``old``'s tensors with ``new``'s values and ``new``'s other
+    fields."""
+    fields = []
+    for o, n in zip(old, new):
+        if torch.is_tensor(o):
+            if n is not o:
+                o.copy_(n)
+            fields.append(o)
+        else:
+            fields.append(n)
+    return type(old)(*fields)
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    launches: GraphLaunches
+    ets: Optional[torch.Tensor]  # the static elapse times it reads
+    metrics: Optional[torch.Tensor]  # its static (steps, metrics) output
+
+
+class _StateGraphs:
+    """The CUDA graphs of one training state: keyed by the piece (kind,
+    steps, the host flags its body reads), made over the state's tensors
+    at ``addresses``, all in one memory pool (each replay's output is
+    copied out before the next replay, and no graph reads memory another
+    wrote)."""
+
+    def __init__(self, state: TrainState):
+        self.state = weakref.ref(state)
+        self.addresses = [t.data_ptr() for t in _state_tensors(state)]
+        self.pool = torch.cuda.graph_pool_handle()
+        self.warm: set = set()  # pieces run eagerly once (the warm-up)
+        self.graphs: Dict[tuple, _Graph] = {}
+
+    def holds(self, state: TrainState) -> bool:
+        return self.state() is state and self.addresses == [
+            t.data_ptr() for t in _state_tensors(state)]
 
 
 def _check_supported(cfg: Config) -> None:
@@ -255,6 +322,9 @@ class Trainer:
         else:
             raise ValueError("occupancy grid needs at least one depth sensor")
         self.logs: Dict[str, list] = {"time": [], "step": [], "mnn": []}
+        self._metric_keys: Optional[List[str]] = None
+        self._graphs: Optional[_StateGraphs] = None
+        self._graph_stream = None
         if t.debug_mode:
             self._debug_validate_dataset()
 
@@ -468,15 +538,158 @@ class Trainer:
             out.append((state.step, self.train_step(state, clock(), group)))
         return out
 
+    # ------------------------------------------------------------ the chunk
+    def make_train_chunk(self, chunk_steps: int):
+        """``chunk(state, elapse_times=None) -> (first step, metric names,
+        (chunk_steps, metrics) device tensor)``: ``chunk_steps`` steps with
+        the grid update before every step whose index is a multiple of the
+        update interval, the semantics of :meth:`run_steps` (the JAX
+        ``_make_train_chunk``, trainer.py:428-519).  ``elapse_times``: None
+        or the seconds each step (and a grid update at it) filters images
+        by under ``real_time_simulation`` (the JAX ``ets``).
+
+        The chunk runs as pieces: a group (the grid update, then
+        ``update_interval`` steps) at each interval-aligned step with a
+        whole interval left, else single steps, each after a lone grid
+        update where one falls.  On the card each piece kind is a CUDA
+        graph (see the module doc; one stream of work, no fallback: a
+        capture that fails raises); on the CPU the pieces run eagerly.
+        Metrics are stacked over the chunk as the JAX scan stacks them."""
+        if chunk_steps < 1:
+            raise ValueError(f"make_train_chunk: want chunk_steps >= 1, got "
+                             f"{chunk_steps}")
+
+        def chunk(state: TrainState, elapse_times=None):
+            first = state.step
+            ets = (None if elapse_times is None
+                   else np.asarray(elapse_times, np.float32).reshape(-1))
+            if ets is not None and ets.shape[0] != chunk_steps:
+                raise ValueError(f"chunk: want {chunk_steps} elapse times, got "
+                                 f"{ets.shape[0]}")
+            outs, i = [], 0
+            for kind, n in self._pieces(state.step, chunk_steps):
+                outs.append(self._run_piece(
+                    state, kind, n, None if ets is None else ets[i:i + max(n, 1)]))
+                i += n
+            return first, self._metric_keys, torch.cat(
+                [m for m in outs if m is not None])
+
+        return chunk
+
+    def _pieces(self, step: int, n: int) -> List[Tuple[str, int]]:
+        """The chunk's pieces from ``step``: ("group", interval), ("grid",
+        0) or ("step", 1)."""
+        interval, out = self.grid_update_interval, []
+        while n > 0:
+            if step % interval == 0 and n >= interval:
+                out.append(("group", interval))
+                step, n = step + interval, n - interval
+                continue
+            if step % interval == 0:
+                out.append(("grid", 0))
+            out.append(("step", 1))
+            step, n = step + 1, n - 1
+        return out
+
+    def _piece_body(self, state: TrainState, kind: str, n: int, ets):
+        """A piece on the state's own tensors: the grid update (group and
+        grid), then n steps; returns the (n, metrics) stacked metrics, or
+        None for a lone grid update.  ``ets``: None or an (n,) tensor of
+        elapse times (the grid update reads the first)."""
+        if kind != "step":
+            grid = state.grid
+            self.grid_update(state, None if ets is None else ets[0])
+            state.grid = _write_into(grid, state.grid)
+        rows = []
+        for i in range(n):
+            uss = state.uss_stats
+            m = self.train_step(state, None if ets is None else ets[i])
+            if uss is not None:
+                state.uss_stats = _write_into(uss, state.uss_stats)
+            keys = [k for k in METRIC_KEYS if k in m]
+            self._metric_keys = keys
+            rows.append(torch.stack([m[k].float() for k in keys]))
+        return torch.stack(rows) if rows else None
+
+    def _piece_flags(self, state: TrainState, kind: str) -> tuple:
+        """The host values a piece's body branches on: the VIRUS update's
+        warm-up decay, the NGP update's warm-up pass."""
+        if kind == "step":
+            return ()
+        if isinstance(state.grid, OccGridState):
+            return (state.grid.update_step + 1 <= self.occ_hp.decay_warmup_steps,)
+        return (state.step < self.cfg.ngp_grid.warmup_steps,)
+
+    def _advance(self, state: TrainState, kind: str, n: int) -> None:
+        """The host counters a replayed piece moves: the step, and the
+        VIRUS grid's update count."""
+        state.step += n
+        if kind != "step" and isinstance(state.grid, OccGridState):
+            state.grid = state.grid._replace(
+                update_step=state.grid.update_step + 1)
+
+    def _run_piece(self, state: TrainState, kind: str, n: int, ets):
+        dev = self.device
+        if dev.type != "cuda":
+            et = None if ets is None else torch.from_numpy(ets).to(dev)
+            return self._piece_body(state, kind, n, et)
+        graphs = self._graphs
+        if graphs is None or not graphs.holds(state):
+            graphs = self._graphs = _StateGraphs(state)
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(dev)
+        stream, here = self._graph_stream, torch.cuda.current_stream(dev)
+        key = (kind, n) + self._piece_flags(state, kind)
+        g = graphs.graphs.get(key)
+        if g is None and key not in graphs.warm:
+            # the warm-up: the piece eagerly, on the capture's stream
+            stream.wait_stream(here)
+            with torch.cuda.stream(stream):
+                et = None if ets is None else torch.from_numpy(ets).to(dev)
+                out = self._piece_body(state, kind, n, et)
+            here.wait_stream(stream)
+            graphs.warm.add(key)
+            return out
+        if g is None:
+            g = graphs.graphs[key] = self._capture(state, graphs, kind, n, ets)
+        if ets is not None:
+            g.ets.copy_(torch.from_numpy(ets).pin_memory(), non_blocking=True)
+        g.graph.replay()
+        g.launches.replays += 1
+        self._advance(state, kind, n)
+        return None if g.metrics is None else g.metrics.clone()
+
+    def _capture(self, state: TrainState, graphs: _StateGraphs, kind: str,
+                 n: int, ets) -> _Graph:
+        """Capture a piece (PyTorch's whole-network recipe: gradients set
+        to None first, so backward allocates them from the graph's pool);
+        capture runs nothing on the card, so the host counters the body
+        moved are set back."""
+        dev = self.device
+        et = None if ets is None else torch.empty(
+            ets.shape, dtype=torch.float32, device=dev)
+        state.optimizer.zero_grad(set_to_none=True)
+        step, grid = state.step, state.grid
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        launches = GraphLaunches()
+        with launches.capture(), torch.cuda.graph(
+                graph, pool=graphs.pool, stream=self._graph_stream):
+            metrics = self._piece_body(state, kind, n, et)
+        state.step, state.grid = step, grid
+        return _Graph(graph, launches, et, metrics)
+
     # ------------------------------------------------------------------ train
     def train(self, state: Optional[TrainState] = None) -> TrainState:
         """Run until ``training.max_steps`` or ``training.max_time``; grid
         update every interval, before the step.  The NGP grid's warm-up
-        runs step by step (see the module doc), the rest in chunks, with
+        runs step by step (see the module doc), the rest in chunks of
+        :meth:`make_train_chunk` (CUDA graphs on the card), with
         ``max_time`` checked after each.  ``real_time_simulation`` reads
-        the host clock before each step and grid update; ``debug_mode``
-        checks the state after each logged step or chunk (and may sync the
-        host only there)."""
+        the host clock before each warm-up step and, in a chunk, takes
+        the clock at its start plus the measured seconds a step;
+        ``debug_mode`` checks the state after each logged step or chunk
+        (and may sync the host only there)."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
@@ -515,11 +728,13 @@ class Trainer:
         cfg = self.cfg
         clock = lambda: time.time() - tic  # noqa: E731
         while state.step < until:
-            pending = self.run_steps(state, 1, clock)
-            scored = pending[0][0] % cfg.evaluation.eval_every_n_steps == 0
+            (step, m), = self.run_steps(state, 1, clock)
+            keys = [k for k in METRIC_KEYS if k in m]
+            vals = torch.stack([m[k].float() for k in keys])[None].cpu().numpy()
+            scored = step % cfg.evaluation.eval_every_n_steps == 0
             mnn = (self._intermediate_eval(state, clock()) if scored
                    else float("nan"))
-            last = self._log_chunk(pending, tic, mnn, quiet=not scored)
+            last = self._log_chunk(step, keys, vals, tic, mnn, quiet=not scored)
             if cfg.training.debug_mode:
                 self._debug_check_state(state, last, state.step)
             if self._over_time(tic, state.step):
@@ -529,7 +744,12 @@ class Trainer:
     def _train_chunks(self, state: TrainState, tic: float) -> None:
         """Chunks of ``eval_every_n_steps`` steps rounded down to whole
         grid-update intervals when the entry step is a multiple of one
-        (trainer.py:556-656), the map scored after each."""
+        (trainer.py:556-656), each through :meth:`make_train_chunk`, the
+        map scored after each.  Under ``real_time_simulation`` a chunk's
+        steps take the host clock at its start plus the measured seconds a
+        step (the last chunk's, the first chunk's excepted: its pieces run
+        eagerly and are captured), as the JAX loop's ``ets``
+        (trainer.py:574-601)."""
         cfg = self.cfg
         max_steps = cfg.training.max_steps
         chunk = max(1, min(cfg.evaluation.eval_every_n_steps,
@@ -538,11 +758,20 @@ class Trainer:
         if state.step % interval == 0 and chunk >= interval:
             chunk -= chunk % interval
         clock = lambda: time.time() - tic  # noqa: E731
+        chunks, start, dt_est = {}, state.step, 0.0
         while state.step < max_steps:
-            pending = self.run_steps(state, min(chunk, max_steps - state.step),
-                                     clock)
+            n = min(chunk, max_steps - state.step)
+            if n not in chunks:
+                chunks[n] = self.make_train_chunk(n)
+            t0 = clock()
+            ets = (t0 + dt_est * np.arange(n)
+                   if cfg.training.real_time_simulation else None)
+            first, keys, metrics = chunks[n](state, ets)
+            vals = metrics.cpu().numpy()  # one transfer; waits for the chunk
+            if first > start:
+                dt_est = (clock() - t0) / n
             mnn = self._intermediate_eval(state, clock())
-            last = self._log_chunk(pending, tic, mnn)
+            last = self._log_chunk(first, keys, vals, tic, mnn)
             if cfg.training.debug_mode:
                 self._debug_check_state(state, last, state.step)
             if self._over_time(tic, state.step):
@@ -615,27 +844,25 @@ class Trainer:
             state.model, state.grid.occ_bool, sel, sensors=("NeRF",))
         return float(metrics["NeRF"]["nn_mean"]["zone3"])
 
-    def _log_chunk(self, pending, tic: float, mnn: float = float("nan"),
-                   quiet: bool = False) -> Dict[str, float]:
-        """One device -> host transfer for all metrics of the chunk; one
-        row a step, ``mnn`` on the chunk's last row (trainer.py:781-809);
-        returns the last step's metrics (logged unless ``quiet``)."""
-        keys = [k for k in METRIC_KEYS if k in pending[0][1]]
-        vals = torch.stack([
-            torch.stack([m[k].float() for k in keys]) for _, m in pending
-        ]).cpu().numpy()
+    def _log_chunk(self, first: int, keys, vals: np.ndarray, tic: float,
+                   mnn: float = float("nan"), quiet: bool = False
+                   ) -> Dict[str, float]:
+        """The chunk's metrics ``vals`` (steps, ``keys``), on the host: one
+        row a step from ``first``, ``mnn`` on the chunk's last row
+        (trainer.py:781-809); returns the last step's metrics (logged
+        unless ``quiet``)."""
         now = time.time() - tic
-        for j, ((step, _), row) in enumerate(zip(pending, vals)):
+        for j, row in enumerate(vals):
             self.logs["time"].append(now)
-            self.logs["step"].append(step)
-            self.logs["mnn"].append(mnn if j == len(pending) - 1 else math.nan)
+            self.logs["step"].append(first + j)
+            self.logs["mnn"].append(mnn if j == len(vals) - 1 else math.nan)
             for k, v in zip(keys, row):
                 self.logs.setdefault(k, []).append(float(v))
         last = dict(zip(keys, vals[-1]))
         if not quiet:
             self.logger.info(
                 "step %5d | loss %.4f | psnr %.2f | mnn %.3f | rm %d | vr %d",
-                pending[-1][0], last["loss"], last["psnr"], mnn,
+                first + len(vals) - 1, last["loss"], last["psnr"], mnn,
                 int(last["rm_samples"]), int(last["vr_samples"]),
             )
         return {k: float(v) for k, v in last.items()}
@@ -666,7 +893,7 @@ class Trainer:
                 return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
             return np.asarray(x, np.int64)
 
-        out = {"step": state.step, "adam.count": state.optimizer.count,
+        out = {"step": state.step, "adam.count": int(state.optimizer.count),
                "generator": state.generator.get_state()}
         for name, p in state.model.named_parameters():
             mu, nu = state.optimizer._moments(p)
@@ -719,7 +946,7 @@ class Trainer:
                 p.copy_(put(p, data[f"params.{name}"]))
                 for m, key in zip(state.optimizer._moments(p), ("mu", "nu")):
                     m.copy_(put(m, data[f"adam.{key}.{name}"]))
-        state.optimizer.count = int(data["adam.count"])
+        state.optimizer.count.fill_(int(data["adam.count"]))
         state.grid = type(state.grid)(*(
             put(x, data[f"grid.{field}"])
             for field, x in zip(state.grid._fields, state.grid)))
