@@ -253,6 +253,122 @@ def test_one_rank_is_bit_identical_to_the_plain_trainer(tmp_path):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+# ------------------------------------ the data-parallel chunk's pieces
+# entry: steps run step by step first; then the chunks' sizes (the grid
+# update every 4 steps: groups, an unaligned entry's single steps and lone
+# grid updates, chunks shorter than the interval)
+DP_ENTRIES = {
+    "aligned": (0, (4, 4)),
+    "unaligned_at_3": (3, (9,)),
+    "shorter_than_the_interval": (0, (3, 6)),
+}
+
+
+def _state_bytes(tr, st):
+    """Every replicated tensor, both generators' states and the step."""
+    out = {k: v.tobytes() for k, v in tr.state_arrays(st).items()}
+    out["shard_generator"] = st.shard_generator.get_state().numpy().tobytes()
+    return out
+
+
+def _chunk_against_run_steps_rank(rank, world, init_method, cfg, pre, sizes):
+    """A rank's group ``run_steps`` and its group chunks from one seed
+    (spawned): every metric of every step and the whole state."""
+    from virus_nerf_tpu_torch.parallel import shard_state
+
+    torch.set_num_threads(1)
+    mesh = _mesh(rank, world, init_method)
+    ds, scene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
+    tr = Trainer(cfg, ds, scene=scene, device="cpu")
+    want, got = (shard_state(tr.init_state(), mesh) for _ in range(2))
+    tr.run_steps(want, pre, group=mesh.group)
+    tr.run_steps(got, pre, group=mesh.group)
+    pending = tr.run_steps(want, sum(sizes), group=mesh.group)
+    rows = []
+    for n in sizes:
+        first, keys, m = tr.make_train_chunk(n, mesh.group)(got)
+        assert first == pre + sum(r.shape[0] for r in rows)
+        rows.append(m)
+    steps = torch.stack([torch.stack([m[k].float() for k in keys])
+                         for _, m in pending])
+    return dict(equal=torch.equal(torch.cat(rows), steps),
+                losses=steps[:, 0].tolist(), want=_state_bytes(tr, want),
+                got=_state_bytes(tr, got), updates=got.grid.update_step,
+                uss=int(got.uss_stats.counts.sum()),
+                mismatches=replica_mismatches(got, mesh))
+
+
+@pytest.mark.parametrize("entry", list(DP_ENTRIES))
+def test_group_chunk_is_group_run_steps_bit_for_bit(entry, tmp_path):
+    # 2 gloo ranks, "closest" pixels (the USS statistics fold the batch
+    # gathered in rank order): the chunk's pieces under the group against
+    # the group's step-by-step loop, bit for bit, shard generators included
+    pre, sizes = DP_ENTRIES[entry]
+    results = spawn_ranks(_chunk_against_run_steps_rank, 2,
+                          args=(dp_config(closest=True), pre, sizes),
+                          timeout=TIMEOUT, store_dir=str(tmp_path))
+    for r in results:
+        assert r["equal"] and r["mismatches"] == []
+        assert r["got"].keys() == r["want"].keys()
+        assert [k for k in r["got"] if r["got"][k] != r["want"][k]] == []
+        assert r["losses"] == results[0]["losses"]
+        assert r["updates"] == (pre + sum(sizes) + 3) // 4 and r["uss"] > 0
+    # the ranks drew different batches from their own generators
+    assert results[0]["got"]["shard_generator"] != results[1]["got"]["shard_generator"]
+
+
+def _dp_chunk_given_draws_rank(rank, world, init_method, cfg, params, grid,
+                               draws, sizes):
+    """A rank's ``make_dp_train_chunk`` chunks on its device's JAX draws
+    (spawned): the draws stand in for the trainer's own."""
+    torch.set_num_threads(1)
+    mesh = _mesh(rank, world, init_method)
+    ds, scene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
+    tr = Trainer(cfg, ds, scene=scene, device="cpu")
+    st = tr.init_state(1)
+    st.model.load_state_dict(params)
+    # a copy: the ranks' arguments share memory, and a chunk writes its
+    # state's grid in place
+    st.grid = type(grid)(*(x.clone() if torch.is_tensor(x) else x
+                           for x in grid))
+
+    def grid_update(state, elapse_time=None, group=None):
+        assert group is mesh.group
+        tr.grid_update_on(state, *draws["occ"][state.step][rank], group)
+
+    def train_step(state, elapse_time=None, group=None):
+        assert group is mesh.group
+        return tr.train_step_on(state, *draws["train"][state.step][rank], group)
+
+    tr.grid_update, tr.train_step = grid_update, train_step
+    losses, rm = [], []
+    for n in sizes:
+        m = make_dp_train_chunk(tr, mesh, n)(st)
+        assert m["rm_samples"].dtype == torch.int64 and m["loss"].shape == (n,)
+        losses += m["loss"].tolist()
+        rm += m["rm_samples"].tolist()
+    return dict(losses=losses, rm=rm, updates=st.grid.update_step,
+                mismatches=replica_mismatches(st, mesh))
+
+
+@pytest.mark.parametrize("sizes", [(8,), (3, 5)])
+def test_two_gloo_rank_chunks_match_the_jax_dp_chunk(sizes, tmp_path):
+    # make_dp_train_chunk on 2 gloo ranks against the JAX make_dp_train_chunk
+    # on a 2-device CPU mesh (8 steps, grid updates at 0 and 4), each rank
+    # fed its device's draws: one chunk of 8 (two groups), or 3 + 5 (single
+    # steps, a lone grid update, a group)
+    cfg = dp_config()
+    losses_j, rm_j, params, grid, draws, updates_j = jax_dp_run(cfg)
+    results = spawn_ranks(_dp_chunk_given_draws_rank, 2,
+                          args=(cfg, params, grid, draws, sizes),
+                          timeout=TIMEOUT, store_dir=str(tmp_path))
+    for r in results:
+        assert r["mismatches"] == [] and r["updates"] == updates_j == 2
+        assert r["losses"] == results[0]["losses"] and r["rm"] == rm_j
+    # float32 in another op order on each side, the two-rank test's 1e-5
+    np.testing.assert_allclose(results[0]["losses"], losses_j, rtol=1e-5)
+
+
 # ------------------------------------------ the 2-D (pop, data) population
 # loss weights (color, rgbd, tof, uss) of four particles
 WEIGHTS = np.array([[1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 8.0, 8.0],
@@ -301,23 +417,27 @@ def _mesh2d_rank(rank, world, init_method, cfg, inits, draws, steps, calls):
     _mesh(rank, world, init_method)
     ds, scene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
     tr = Trainer(cfg, ds, scene=scene, device="cpu")
-    seed_of, data_i = {}, rank % 2
+    data_i = rank % 2
 
+    # a state's draws by its generator's seed (the evaluator resets one
+    # state in place for each particle: its generator takes the seed)
     def init_state(seed=None):
         st = Trainer.init_state(tr, seed)
         params, (count, mu, nu), grid = inits[seed]
         st.model.load_state_dict(params)
         st.optimizer.load_moments(st.model.named_parameters(), count, mu, nu)
-        st.grid = grid
-        seed_of[id(st)] = seed
+        # a copy: a chunk writes its state's grid in place, and every call
+        # starts the seed from this one
+        st.grid = type(grid)(*(x.clone() if torch.is_tensor(x) else x
+                               for x in grid))
         return st
 
     def grid_update(state, elapse_time=None, group=None):
-        own = draws[seed_of[id(state)]]["occ"][state.step][data_i]
+        own = draws[state.generator.initial_seed()]["occ"][state.step][data_i]
         tr.grid_update_on(state, *own, group)
 
     def train_step(state, elapse_time=None, group=None):
-        own = draws[seed_of[id(state)]]["train"][state.step][data_i]
+        own = draws[state.generator.initial_seed()]["train"][state.step][data_i]
         return tr.train_step_on(state, *own, group)
 
     tr.init_state, tr.grid_update, tr.train_step = (
@@ -346,6 +466,30 @@ def test_four_gloo_ranks_match_the_jax_pop_data_mesh(tmp_path):
     # a particle's run depends on its weights and seed alone
     assert part == full[:3]
     assert full[1] > full[3]  # up-weighted depth sensors raise the loss
+
+
+def _mesh2d_own_draws_rank(rank, world, init_method, cfg, steps):
+    """A rank of the 2 x 2 nesting on its own draws (spawned): three
+    calls, the particles in another order in the last."""
+    torch.set_num_threads(1)
+    _mesh(rank, world, init_method)
+    ds, scene, _ = make_synthetic_dataset(device="cpu", **DATA_KW)
+    tr = Trainer(cfg, ds, scene=scene, device="cpu")
+    be = make_population_eval(tr, steps=steps, devices=MESH_2X2, score_tail=2)
+    return [be(w).tolist() for w in (WEIGHTS, WEIGHTS, WEIGHTS[[1, 0, 3, 2]])]
+
+
+def test_pop_data_rows_repeat_on_their_own_draws(tmp_path):
+    # each rank's particles take turns on one state reset in place, its
+    # shard generator seeded anew: a call repeats bit for bit, and a
+    # particle's score follows its (weights, seed) pair alone
+    results = spawn_ranks(_mesh2d_own_draws_rank, 4, args=(dp_config(), 4),
+                          timeout=TIMEOUT, store_dir=str(tmp_path))
+    first, again, swapped = results[0]
+    assert all(r == results[0] for r in results)
+    assert first == again and np.all(np.isfinite(first))
+    # particles 0 and 1 (seeds 0, 1) took each other's weights
+    assert swapped != first and len(set(first)) == 4
 
 
 def test_a_pop_data_nesting_needs_its_process_group(tmp_path):

@@ -38,6 +38,7 @@ from virus_nerf_tpu_torch.optimization import HParamSpace, run_optimization
 from virus_nerf_tpu_torch.optimization.parallel_eval import make_population_eval
 from virus_nerf_tpu_torch.optimization.runner import score_from_metrics
 from virus_nerf_tpu_torch.parallel import population
+from virus_nerf_tpu_torch.training.loss import weights_tensor
 from virus_nerf_tpu_torch.training.trainer import Trainer
 
 from test_torch_slice import _np, _port_batch
@@ -159,15 +160,19 @@ def test_two_pso_iterations_through_run_optimization(data, tmp_path):
 class JaxDraws:
     """Each seed's JAX initial state and draws, handed to a port trainer
     through its own ``init_state`` / ``grid_update`` / ``train_step``: the
-    key chain of the JAX chunk body (trainer.py:373-385, 249-253)."""
+    key chain of the JAX chunk body (trainer.py:373-385, 249-253).  A batch
+    is drawn when the port asks for it, with the elapse time the port
+    hands its step (under ``real_time_simulation`` the image filter's, as
+    the JAX body's ``use_time``)."""
 
     def __init__(self, cfg, steps, seeds):
         self.jds, jscene, _ = j_make_dataset(**DATA_KW)
         self.jt = JTrainer(cfg, self.jds, scene=jscene)
-        self.cfg, self.init, self.draws = cfg, {}, {}
-        interval, t = cfg.occ_grid.update_interval, cfg.training
-        draw_batch = jax.jit(lambda k, n, pixs: j_sample_batch(
-            self.jds, k, n, {"imgs": "all", "pixs": pixs}), static_argnums=(1, 2))
+        self.cfg, self.init, self.keys = cfg, {}, {}
+        interval = cfg.occ_grid.update_interval
+        self._draw = jax.jit(lambda k, n, strategy, et: j_sample_batch(
+            self.jds, k, n, {"imgs": "all", "pixs": strategy}, et),
+            static_argnums=(1, 2))
         for seed in seeds:
             js = self.jt.init_state(seed)
             self.init[seed] = js
@@ -177,18 +182,24 @@ class JaxDraws:
                     key, k1, k2, k3 = jax.random.split(key, 4)
                     noise = jax.random.uniform(jax.random.split(k3)[1],
                                                (32, 32, 3), jnp.float32)
-                    occ[step] = (_port_batch(draw_batch(k1, 32, "valid_tof")),
-                                 _port_batch(draw_batch(k2, 32, "valid_uss")),
-                                 torch.from_numpy(np.array(noise * 2.0 - 1.0)))
+                    occ[step] = (k1, k2, torch.from_numpy(
+                        np.array(noise * 2.0 - 1.0)))
                 key, kb, kr = jax.random.split(key, 3)
-                batch = j_sample_batch(self.jds, kb, t.batch_size,
-                                       t.sampling_strategy)
-                train[step] = (_port_batch(batch), torch.from_numpy(np.array(
-                    jax.random.uniform(kr, (t.batch_size,)))))
-            self.draws[seed] = (occ, train)
+                train[step] = (kb, torch.from_numpy(np.array(
+                    jax.random.uniform(kr, (cfg.training.batch_size,)))))
+            self.keys[seed] = (occ, train)
+
+    def batch(self, key, n, pixs, et):
+        et = None if et is None else jnp.float32(float(et))
+        if isinstance(pixs, dict):  # unhashable: not a static argument
+            return _port_batch(j_sample_batch(
+                self.jds, key, n, {"imgs": "all", "pixs": pixs}, et))
+        return _port_batch(self._draw(key, n, pixs, et))
 
     def install(self, pt):
-        seeds = {}
+        # a state's draws by its generator's seed (the evaluator resets one
+        # state in place for each particle: its generator takes the seed)
+        t = self.cfg.training
 
         def init_state(seed=None):
             js = self.init[seed]
@@ -197,15 +208,20 @@ class JaxDraws:
             count, mu, nu = adam_state_from_jax(_np(js.opt_state), device="cpu")
             ps.optimizer.load_moments(ps.model.named_parameters(), count, mu, nu)
             ps.grid = grid_from_jax(_np(js.grid), device="cpu")
-            seeds[id(ps)] = seed
             return ps
 
         def grid_update(state, elapse_time=None, group=None):
-            pt.grid_update_on(state, *self.draws[seeds[id(state)]][0][state.step])
+            k1, k2, noise = self.keys[state.generator.initial_seed()][0][
+                state.step]
+            et = pt._elapse(elapse_time)
+            pt.grid_update_on(state, self.batch(k1, 32, "valid_tof", et),
+                              self.batch(k2, 32, "valid_uss", et), noise)
 
         def train_step(state, elapse_time=None, group=None):
-            return pt.train_step_on(
-                state, *self.draws[seeds[id(state)]][1][state.step])
+            kb, noise = self.keys[state.generator.initial_seed()][1][state.step]
+            batch = self.batch(kb, t.batch_size, t.sampling_strategy["pixs"],
+                               pt._elapse(elapse_time))
+            return pt.train_step_on(state, batch, noise)
 
         pt.init_state, pt.grid_update, pt.train_step = (
             init_state, grid_update, train_step)
@@ -229,6 +245,48 @@ def test_weights_eval_matches_jax_given_its_init_and_draws(data):
     assert got[1] > got[3]
     assert pt.loss_weights == Trainer(cfg, ds, scene=scene,
                                       device="cpu").loss_weights
+    # the particles' weights went through the trainer's device tensor,
+    # which holds the trainer's own again
+    assert torch.equal(pt.device_loss_weights,
+                       weights_tensor(pt.loss_weights, "cpu"))
+
+
+def test_weights_eval_in_real_time_matches_jax_given_its_init_and_draws(data):
+    # under real-time simulation the JAX swarm trains every particle at an
+    # elapse time of 0 s, so only the images taken by then are drawn; the
+    # port's steps must draw at the same time (a step given no time draws
+    # from every image and scores apart).  4 particles x 8 steps, within
+    # 1e-4 as above
+    cfg = pop_config()
+    cfg.training.real_time_simulation = True
+    jdraws = JaxDraws(cfg, 8, range(4))
+    want = j_weights_eval(jdraws.jt, jdraws.jds, steps=8)(WEIGHTS)
+    ds, scene, _ = data
+    pt = Trainer(cfg, ds, scene=scene, device="cpu")
+    jdraws.install(pt)
+    got = make_population_eval(pt, steps=8)(WEIGHTS)
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_weights_eval_restores_the_weights_when_a_particle_fails(data):
+    ds, scene, _ = data
+    pt = Trainer(pop_config(), ds, scene=scene, device="cpu")
+    base = pt.loss_weights
+    train_step, calls = pt.train_step, []
+
+    def failing(state, elapse_time=None, group=None):
+        calls.append(state.step)
+        if len(calls) == 6:  # particle 1's second step
+            raise RuntimeError("a failing step")
+        return train_step(state, elapse_time, group)
+
+    pt.train_step = failing
+    with pytest.raises(RuntimeError, match="a failing step"):
+        make_population_eval(pt, steps=4)(WEIGHTS)
+    # the trainer's own weights, on the host and in device memory
+    assert pt.loss_weights == base
+    assert torch.equal(pt.device_loss_weights, weights_tensor(base, "cpu"))
 
 
 def test_weights_eval_pads_to_the_devices_and_refuses_bad_shapes(data):
@@ -241,10 +299,20 @@ def test_weights_eval_pads_to_the_devices_and_refuses_bad_shapes(data):
     part = be(WEIGHTS[:3])  # padded to 4 particles, trimmed to 3
     assert part.shape == (3,)
     np.testing.assert_array_equal(part, full[:3])
+    # a device's particles take turns on one state, reset in place: each
+    # score is its particle's run alone from a fresh state, bit for bit
+    alone = Trainer(cfg, ds, scene=scene, device="cpu")
+    alone.loss_weights = alone.loss_weights._replace(
+        **dict(zip(("color", "rgbd", "tof", "uss"), map(float, WEIGHTS[3]))))
+    _, keys, m = alone.make_train_chunk(4)(alone.init_state(seed=3))
+    assert float(m[-2:, keys.index("loss")].mean()) == full[3]
     with pytest.raises(ValueError, match="positions"):
         be(WEIGHTS[:, :3])
     with pytest.raises(ValueError, match="positions"):
         be(WEIGHTS[0])
+    # distortion gates a branch: it is no particle's weight
+    with pytest.raises(ValueError, match="weight_fields"):
+        make_population_eval(pt, weight_fields=("color", "distortion"))
     # a 2-D (pop, data) nesting needs a process group of pop * data ranks
     # (tests/test_torch_parallel.py runs one on four gloo ranks)
     with pytest.raises(ValueError, match="process group"):

@@ -20,12 +20,23 @@ the CPU the same piece bodies run eagerly.  Here, on the CPU:
   within 1e-5, with and without C8's witness (the table entries one
   side's Adam step moved and the other's did not, set equal after each
   step);
+- the converted JAX state owns its tensors: a chunk writes its state in
+  place, and a tensor that aliased a JAX buffer wrote into the JAX state
+  the reference still read (the witness case above differed from run to
+  run by up to 1 % when JAX's asynchronous grid update read the port's);
+- the loss weights read from device memory give the host floats' losses
+  and states bit for bit; the trainer's graph set holds one state and
+  its generators (a state set in place to another seed keeps it);
+- the chunk refuses a configuration whose sample counts its float32
+  metrics cannot hold exactly;
 - the port's bench (``virus_nerf_tpu_torch.bench``) at a tiny size on the
   CPU: its JSON line's keys, ``kernels_ok`` None off the card, and its
   entry point refusing to run without a card.
 """
 
+import gc
 import sys
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -41,8 +52,9 @@ from test_torch_trainer_options import (
 )
 from virus_nerf_tpu.data import make_synthetic_dataset as j_make_dataset
 from virus_nerf_tpu.training import Trainer as JTrainer
-from virus_nerf_tpu_torch import bench
+from virus_nerf_tpu_torch import bench, convert
 from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+from virus_nerf_tpu_torch.training import trainer as trainer_module
 from virus_nerf_tpu_torch.training.trainer import Trainer, _state_tensors
 
 torch.set_num_threads(1)
@@ -222,6 +234,124 @@ def test_chunk_losses_match_the_jax_chunk(data, witness):
     np.testing.assert_allclose(losses_p, losses_j, rtol=1e-5)
     if witness:
         assert max(synced) > 0
+
+
+def _leaves(tree):
+    return [np.array(x) for x in jax.tree.leaves(tree)]
+
+
+def test_the_port_chunk_leaves_the_jax_state_alone(data):
+    # the port's state converted from the JAX one, then a port chunk on its
+    # own draws (two grid updates written in place): the JAX state keeps
+    # every value
+    pair = ChunkPair(*data)
+    js0, ps = pair.start(seed=1)
+    before = _leaves((js0.params, js0.opt_state, js0.grid))
+    pair.pt.make_train_chunk(16)(ps)
+    assert ps.grid.update_step == 2
+    after = _leaves((js0.params, js0.opt_state, js0.grid))
+    assert all(np.array_equal(a, b) for a, b in zip(before, after))
+
+
+def test_converted_tensors_are_copies():
+    # from JAX arrays: a write to the port's tensor leaves the JAX array;
+    # from writable numpy arrays: a later write to the source does not
+    # reach the port's tensors
+    a = jax.numpy.arange(6, dtype=jax.numpy.float32)
+    t = convert._t(np.asarray(a), "cpu")
+    t.fill_(-1.0)
+    np.testing.assert_array_equal(np.asarray(a), np.arange(6))
+    rng = np.random.default_rng(0)
+    f32 = lambda *s: rng.random(s, dtype=np.float32)  # noqa: E731
+    params = SimpleNamespace(pos_table=f32(64), xyz_w=[f32(3, 4)],
+                             rgb_w=[f32(4, 2)])
+    opt = SimpleNamespace(count=np.int32(3), mu=params, nu=params)
+    grid = SimpleNamespace(occ_3d_grid=f32(8), occ_bool=f32(8) > 0.5,
+                           update_step=np.int32(2))
+    ngp = SimpleNamespace(density_grid=f32(2, 8), occ_bool=f32(2, 8) > 0.5,
+                          bitfield=np.zeros(2, np.uint8),
+                          threshold=np.float32(0.1))
+    stats = SimpleNamespace(min_depth=f32(4), min_pix=np.arange(4),
+                            counts=np.ones(4, np.int64))
+    out = [convert.params_from_jax(params, "cpu"),
+           convert.adam_state_from_jax(opt, "cpu")[1:],
+           convert.grid_from_jax(grid, "cpu"),
+           convert.ngp_grid_from_jax(ngp, "cpu"),
+           convert.uss_stats_from_jax(stats, "cpu")]
+    tensors = [x for x in jax.tree.leaves(out) if torch.is_tensor(x)]
+    copies = [x.clone() for x in tensors]
+    assert len(tensors) == 18
+    for src in (params.pos_table, params.xyz_w[0], params.rgb_w[0],
+                grid.occ_3d_grid, grid.occ_bool, ngp.density_grid,
+                ngp.occ_bool, ngp.bitfield, stats.min_depth, stats.min_pix,
+                stats.counts):
+        src[...] = 1
+    assert all(torch.equal(x, y) for x, y in zip(tensors, copies))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_device_loss_weights_give_the_host_floats_losses(pdata, dtype,
+                                                         monkeypatch):
+    # 9 steps (grid updates at 0 and 8) with the weights read from the
+    # trainer's device tensor, then with the LossWeights floats handed to
+    # the loss as they are: every metric and the whole state bit for bit
+    cfg = chunk_config()
+    cfg.model.dtype = dtype
+    tr = Trainer(cfg, pdata[0], scene=pdata[1], device="cpu")
+    tr.loss_weights = tr.loss_weights._replace(color=0.2, rgbd=100.0, tof=8.0,
+                                               uss=0.1)
+    assert torch.equal(tr.device_loss_weights,
+                       torch.tensor([0.2, 100.0, 8.0, 0.1]))
+    on_device = tr.init_state(0)
+    got = tr.run_steps(on_device, 9)
+    monkeypatch.setattr(trainer_module, "with_device_weights",
+                        lambda weights, values: weights)
+    host = tr.init_state(0)
+    want = tr.run_steps(host, 9)
+    for (_, a), (_, b) in zip(got, want):
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a), a
+    assert_states_equal(on_device, host)
+
+
+def test_a_graph_set_holds_one_state_and_its_generators(pdata):
+    tr = Trainer(chunk_config(), pdata[0], scene=pdata[1], device="cpu")
+    a = tr.init_state(0)
+    ga = tr.state_graphs(a)
+    assert ga.holds(a) and tr.state_graphs(a) is ga
+    # a state whose tensors were rebound: a new set
+    a.grid = a.grid._replace(occ_3d_grid=a.grid.occ_3d_grid.clone())
+    ga2 = tr.state_graphs(a)
+    assert ga2 is not ga and tr.state_graphs(a) is ga2
+    # a generator rebound (a rank's shard generator made): a new set
+    a.shard_generator = torch.Generator()
+    ga3 = tr.state_graphs(a)
+    assert ga3 is not ga2 and tr.state_graphs(a) is ga3
+    a.generator = torch.Generator()
+    assert not ga3.holds(a)
+    # set in place to another seed (the swarm's particles in turns), the
+    # state keeps its set; another state replaces it
+    ga4 = tr.state_graphs(a)
+    assert tr.state_graphs(tr.reset_state(a, seed=3)) is ga4
+    b = tr.init_state(1)
+    assert tr.state_graphs(b) is not ga4 and not tr._graphs.holds(a)
+    # a dead state's set holds nothing
+    del b
+    gc.collect()
+    assert tr._graphs.state() is None
+
+
+def test_chunk_refuses_sample_counts_float32_cannot_hold(pdata):
+    # the chunk's stacked float32 metrics hold the sample counts exactly
+    # below 2^24: 2^14 rays x 1024 samples a step is refused
+    cfg = chunk_config()
+    cfg.training.batch_size, cfg.training.max_samples_per_ray = 2**14, 1024
+    tr = Trainer(cfg, pdata[0], scene=pdata[1], device="cpu")
+    with pytest.raises(ValueError, match="2\\^24"):
+        tr.make_train_chunk(8)
+    cfg.training.max_samples_per_ray = 1023
+    tr = Trainer(cfg, pdata[0], scene=pdata[1], device="cpu")
+    tr.make_train_chunk(8)
 
 
 def test_run_bench_tiny_on_cpu():

@@ -3,8 +3,11 @@
 The functions take the JAX pytrees with their leaves already as numpy
 arrays (``jax.tree.map(np.asarray, tree)``) and read them by field name, so
 this module imports no jax.  Tests use them to make both implementations
-compute on the same numbers.  ``state_from_jax_checkpoint`` reads the JAX
-trainer's ``model.npz`` from disk.
+compute on the same numbers.  Every tensor is a copy: a numpy view of a
+JAX array is JAX's own buffer, which the port's steps would otherwise
+write in place (the grid, the moments) while JAX still reads it.
+``state_from_jax_checkpoint`` reads the JAX trainer's ``model.npz`` from
+disk.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from virus_nerf_tpu_torch.grids.occupancy_grid import OccGridState
 
 
 def _t(x, device, dtype=torch.float32):
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    """A tensor of its own: ``x``'s values copied (``np.array`` copies)."""
+    return torch.from_numpy(np.array(x)).to(dtype=dtype, device=device)
 
 
 def _leaf(x, device):

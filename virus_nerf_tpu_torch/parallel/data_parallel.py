@@ -23,7 +23,11 @@ rank a CPU process (gloo).
 
 All of it is the Trainer's own step code with the ``group`` passed
 through, so the data-parallel path cannot drift from the one-device one;
-one rank is bit for bit the plain trainer.
+one rank is bit for bit the plain trainer.  The chunk
+(``make_dp_train_chunk``) runs through ``Trainer.make_train_chunk``: on
+the card over NCCL its pieces are CUDA graphs with the collectives
+captured inside (the JAX chunk's one dispatch, :128-149); over gloo they
+run eagerly.
 
 Start the ranks either with ``torchrun`` (``make_mesh()`` reads ``RANK``,
 ``WORLD_SIZE`` and ``LOCAL_RANK``; one process a card) or by spawning them
@@ -125,14 +129,19 @@ def shard_seed(seed: int, rank: int) -> int:
                .generate_state(1, np.uint64)[0])
 
 
-def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
+def shard_state(state: TrainState, mesh: Mesh, reseed: bool = False
+                ) -> TrainState:
     """Give ``state`` this rank's generator of batch draws, seeded from the
     state's seed and the rank (nothing to do on one rank, whose draws
-    are the plain trainer's)."""
+    are the plain trainer's).  ``reseed``: seed a generator the state
+    already has anew, in place (a state set to a new seed by
+    ``Trainer.reset_state``; its CUDA graphs hold the generator)."""
     if mesh.world > 1 and state.shard_generator is None:
-        g = torch.Generator(device=state.generator.device)
-        g.manual_seed(shard_seed(state.generator.initial_seed(), mesh.rank))
-        state.shard_generator = g
+        state.shard_generator = torch.Generator(device=state.generator.device)
+        reseed = True
+    if reseed and state.shard_generator is not None:
+        state.shard_generator.manual_seed(
+            shard_seed(state.generator.initial_seed(), mesh.rank))
     return state
 
 
@@ -172,14 +181,21 @@ def make_dp_train_chunk(trainer: Trainer, mesh: Mesh, chunk_steps: int):
     step whose index is a multiple of the update interval, the multi-rank
     twin of one chunk of ``Trainer.train``: ``chunk(state,
     elapse_time=None) -> metrics``, each metric a (chunk_steps,) tensor
-    on the device."""
+    on the device in its step's dtype.  ``elapse_time``: None, seconds
+    (every step's), or one a step.  It is ``trainer.make_train_chunk``
+    over the mesh's group: CUDA graphs on NCCL (see the module doc)."""
     _check(trainer, mesh)
+    run = trainer.make_train_chunk(chunk_steps, mesh.group)
+    timed = trainer.cfg.training.real_time_simulation
 
     def chunk(state: TrainState, elapse_time=None) -> Dict[str, torch.Tensor]:
-        pending = trainer.run_steps(shard_state(state, mesh), chunk_steps,
-                                    elapse_time, mesh.group)
-        return {k: torch.stack([m[k] for _, m in pending])
-                for k in pending[0][1]}
+        ets = None
+        if timed and elapse_time is not None:
+            ets = np.broadcast_to(np.asarray(elapse_time, np.float32),
+                                  (chunk_steps,)).copy()
+        _, keys, m = run(shard_state(state, mesh), ets)
+        return {k: m[:, j].to(dtype)
+                for j, (k, dtype) in enumerate(zip(keys, trainer._metric_dtypes))}
 
     return chunk
 

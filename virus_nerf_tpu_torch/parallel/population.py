@@ -10,8 +10,11 @@ card each, ``devices[i % len(devices)]``.
 Each particle gets its own ``Trainer`` (the hyper-parameters change the
 run's shapes: sampling slot counts, update intervals), its dataset on its
 device, and a seed ``base.seed + 1000 * call + i``.  The launch phase runs
-chunk k of every particle before chunk k+1 of any; CUDA launches are
-asynchronous, so each card works through its queue while the host
+chunk k of every particle before chunk k+1 of any, each through its
+trainer's ``make_train_chunk`` (on the card, replays of the particle's own
+CUDA graphs, one memory pool a particle: the JAX package's jitted chunk a
+particle, dispatched asynchronously, population.py:103-135); CUDA launches
+are asynchronous, so each card works through its queue while the host
 launches the others' chunks.  The harvest phase then scores each
 particle: a non-finite last loss gives ``inf``, else the NeRF depth
 evaluation on every test image through ``score_from_metrics``.
@@ -121,11 +124,13 @@ def make_population_eval(
         while any(p["state"].step < p["trainer"].cfg.training.max_steps
                   for p in parts):
             for p in parts:
-                left = p["trainer"].cfg.training.max_steps - p["state"].step
-                if left > 0:
-                    done = p["trainer"].run_steps(
-                        p["state"], min(p["chunk"], left), 0.0)
-                    p["last"] = done[-1][1]["loss"]
+                tr = p["trainer"]
+                k = min(p["chunk"], tr.cfg.training.max_steps - p["state"].step)
+                if k > 0:
+                    ets = (np.zeros(k, np.float32)
+                           if tr.cfg.training.real_time_simulation else None)
+                    _, keys, m = tr.make_train_chunk(k)(p["state"], ets)
+                    p["last"] = m[-1, keys.index("loss")]
 
         # harvest phase: wait for each particle's result, then score it
         scores = np.full(n, np.inf)

@@ -14,6 +14,13 @@ sum(mask * err) / max(count, 1).  With ``distortion > 0`` the Mip-NeRF 360
 distortion regularizer ``mean_r sum_ij w_i w_j |t_i - t_j|`` over the
 renderer's dense weights 'ws' is added (loss.py:83-93); autograd carries
 its gradient.
+
+The four weights of ``DEVICE_WEIGHTS`` may be 0-dim float32 tensors (the
+trainer's ``device_loss_weights``, read from device memory, so a CUDA graph
+of a step takes the weights written before its replay) or floats; a
+float32 tensor gives the losses of the float bit for bit, since a float
+multiplies a float32 tensor as its float32 rounding.  ``distortion`` stays
+a float: it gates a branch.
 """
 
 from __future__ import annotations
@@ -23,6 +30,10 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 
+# the weights a step may read from device memory, in this order
+DEVICE_WEIGHTS = ("color", "rgbd", "tof", "uss")
+
+
 class LossWeights(NamedTuple):
     color: float = 1.0
     rgbd: float = 100.0
@@ -30,6 +41,17 @@ class LossWeights(NamedTuple):
     uss: float = 50.0
     uss_depth_tol: float = 0.03 / 2.1  # 3 cm world -> cube units (trainer)
     distortion: float = 0.0
+
+
+def weights_tensor(weights: LossWeights, device) -> torch.Tensor:
+    """The ``DEVICE_WEIGHTS`` of ``weights`` as a (4,) float32 tensor."""
+    return torch.tensor([float(getattr(weights, f)) for f in DEVICE_WEIGHTS],
+                        dtype=torch.float32).to(device)
+
+
+def with_device_weights(weights: LossWeights, values: torch.Tensor) -> LossWeights:
+    """``weights`` with its ``DEVICE_WEIGHTS`` read from ``values`` (4,)."""
+    return weights._replace(**dict(zip(DEVICE_WEIGHTS, values.unbind())))
 
 
 def _masked_mse(pred, target, mask):

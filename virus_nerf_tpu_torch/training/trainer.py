@@ -18,10 +18,18 @@ CUDA graphs a state: the group (the grid update, then ``update_interval``
 steps, as the JAX aligned scan), one step and one grid update (an
 unaligned entry or a tail, as the JAX ``lax.cond`` path).  Each kind runs
 eagerly the first time (the warm-up), is captured the second time and is
-replayed from then on; on the CPU the same bodies run eagerly.  The
-bodies write the state's own tensors in place, so a replay reads what the
-last one wrote; a state whose tensors were rebound (``run_steps``, a
-loaded checkpoint, a new state) gets new graphs.
+replayed from then on; on the CPU (and over a gloo group) the same bodies
+run eagerly.  The bodies write the state's own tensors in place, so a
+replay reads what the last one wrote.  The trainer keeps the graphs of
+one state: another state, or one whose tensors or generators were rebound
+(``run_steps``, a loaded checkpoint), gets new ones, so particles that
+take turns on one trainer share one state, set in place for each
+(:meth:`Trainer.reset_state`).
+The loss reads its color, rgbd, ToF and USS weights from device memory
+(``device_loss_weights``), so a graph takes the weights written before its
+replay.  Under a NCCL ``group`` the collectives of the step and the grid
+update are captured with the rest: the counterpart of the JAX
+data-parallel chunk (virus_nerf_tpu/parallel/data_parallel.py:128-149).
 
 Every training option of the JAX trainer is ported: the VIRUS ("occ") and
 the NGP ("ngp") grid, the position encoders (the additive hash with its
@@ -76,6 +84,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from virus_nerf_tpu_torch.configs.config import Config
 from virus_nerf_tpu_torch.data.dataset import Batch, DeviceDataset, sample_batch
@@ -103,7 +112,12 @@ from virus_nerf_tpu_torch.models.renderer import render_rays
 from virus_nerf_tpu_torch.ops.common import MAX_SAMPLES
 from virus_nerf_tpu_torch.ops.fused_adam import FusedAdam
 from virus_nerf_tpu_torch.ops.launch_counts import GraphLaunches
-from virus_nerf_tpu_torch.training.loss import LossWeights, compute_loss
+from virus_nerf_tpu_torch.training.loss import (
+    LossWeights,
+    compute_loss,
+    weights_tensor,
+    with_device_weights,
+)
 from virus_nerf_tpu_torch.utils.distributed import (
     all_gather_cat,
     all_reduce_grads_mean_,
@@ -192,21 +206,25 @@ class _Graph(NamedTuple):
 
 class _StateGraphs:
     """The CUDA graphs of one training state: keyed by the piece (kind,
-    steps, the host flags its body reads), made over the state's tensors
-    at ``addresses``, all in one memory pool (each replay's output is
-    copied out before the next replay, and no graph reads memory another
-    wrote)."""
+    steps, process group, the host flags its body reads), made over the
+    state's tensors at ``addresses`` and its generators, all in one memory
+    pool (each replay's output is copied out before the next replay, and
+    no graph reads memory another wrote)."""
 
     def __init__(self, state: TrainState):
         self.state = weakref.ref(state)
         self.addresses = [t.data_ptr() for t in _state_tensors(state)]
-        self.pool = torch.cuda.graph_pool_handle()
+        self.generators = (state.generator, state.shard_generator)
+        self.pool = None  # made at the first capture
         self.warm: set = set()  # pieces run eagerly once (the warm-up)
         self.graphs: Dict[tuple, _Graph] = {}
 
     def holds(self, state: TrainState) -> bool:
-        return self.state() is state and self.addresses == [
-            t.data_ptr() for t in _state_tensors(state)]
+        return (self.state() is state
+                and self.generators[0] is state.generator
+                and self.generators[1] is state.shard_generator
+                and self.addresses == [t.data_ptr()
+                                       for t in _state_tensors(state)])
 
 
 def _check_supported(cfg: Config) -> None:
@@ -274,6 +292,10 @@ class Trainer:
         # modules/occupancy_grid.py:55-58)
         w2c = scene.w2c(1.0, only_scale=True) if scene is not None else 1.0
         t = cfg.training
+        # the weights the loss reads from device memory (``loss_weights``
+        # writes them)
+        self.device_loss_weights = torch.zeros(4, dtype=torch.float32,
+                                               device=self.device)
         self.loss_weights = LossWeights(
             color=t.color_loss_w, rgbd=t.rgbd_loss_w, tof=t.tof_loss_w,
             uss=t.uss_loss_w, uss_depth_tol=float(0.03 * w2c),
@@ -323,10 +345,22 @@ class Trainer:
             raise ValueError("occupancy grid needs at least one depth sensor")
         self.logs: Dict[str, list] = {"time": [], "step": [], "mnn": []}
         self._metric_keys: Optional[List[str]] = None
+        self._metric_dtypes: Optional[List[torch.dtype]] = None
         self._graphs: Optional[_StateGraphs] = None
         self._graph_stream = None
         if t.debug_mode:
             self._debug_validate_dataset()
+
+    @property
+    def loss_weights(self) -> LossWeights:
+        """The loss weights; setting them writes ``device_loss_weights``
+        too (a copy from the host, so never inside a capture)."""
+        return self._loss_weights
+
+    @loss_weights.setter
+    def loss_weights(self, weights: LossWeights) -> None:
+        self._loss_weights = weights
+        self.device_loss_weights.copy_(weights_tensor(weights, self.device))
 
     def _sample_budget(self) -> Optional[int]:
         """The compacted-sample budget, or None for the dense layout.  As
@@ -396,6 +430,28 @@ class Trainer:
         return TrainState(model=model, optimizer=optimizer, grid=grid,
                           generator=g, uss_stats=uss_stats)
 
+    def reset_state(self, state: TrainState, seed: Optional[int] = None
+                    ) -> TrainState:
+        """``state`` set in place to the values of ``init_state(seed)``:
+        its tensors and generators keep their addresses, so the CUDA graphs
+        made over it replay on (a swarm runs its particles in turns on one
+        state).  A rank's shard generator is seeded anew by
+        ``parallel.shard_state(state, mesh, reseed=True)``."""
+        fresh = self.init_state(seed)
+        with torch.no_grad():
+            for p, q in zip(state.model.parameters(), fresh.model.parameters()):
+                p.copy_(q)
+                for m, n in zip(state.optimizer._moments(p),
+                                fresh.optimizer._moments(q)):
+                    m.copy_(n)
+            state.optimizer.count.copy_(fresh.optimizer.count)
+            state.grid = _write_into(state.grid, fresh.grid)
+            if state.uss_stats is not None:
+                state.uss_stats = _write_into(state.uss_stats, fresh.uss_stats)
+        state.generator.set_state(fresh.generator.get_state())
+        state.step = fresh.step
+        return state
+
     def _elapse(self, elapse_time):
         """The image filter's time: ``elapse_time`` under
         ``real_time_simulation``, else None (every image)."""
@@ -440,7 +496,9 @@ class Trainer:
             need_ws=self.loss_weights.distortion > 0.0,
         )
         loss, loss_dict = compute_loss(
-            results, batch, self.loss_weights, tuple(t.sensors)
+            results, batch,
+            with_device_weights(self.loss_weights, self.device_loss_weights),
+            tuple(t.sensors),
         )
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -539,25 +597,40 @@ class Trainer:
         return out
 
     # ------------------------------------------------------------ the chunk
-    def make_train_chunk(self, chunk_steps: int):
+    def make_train_chunk(self, chunk_steps: int, group=None):
         """``chunk(state, elapse_times=None) -> (first step, metric names,
         (chunk_steps, metrics) device tensor)``: ``chunk_steps`` steps with
         the grid update before every step whose index is a multiple of the
         update interval, the semantics of :meth:`run_steps` (the JAX
         ``_make_train_chunk``, trainer.py:428-519).  ``elapse_times``: None
         or the seconds each step (and a grid update at it) filters images
-        by under ``real_time_simulation`` (the JAX ``ets``).
+        by under ``real_time_simulation`` (the JAX ``ets``).  ``group``:
+        the process group of a data-parallel chunk (this rank's share of
+        each batch, the collectives of :meth:`train_step_on` and
+        :meth:`grid_update_on`).
 
         The chunk runs as pieces: a group (the grid update, then
         ``update_interval`` steps) at each interval-aligned step with a
         whole interval left, else single steps, each after a lone grid
         update where one falls.  On the card each piece kind is a CUDA
         graph (see the module doc; one stream of work, no fallback: a
-        capture that fails raises); on the CPU the pieces run eagerly.
-        Metrics are stacked over the chunk as the JAX scan stacks them."""
+        capture that fails raises), under a NCCL group with its
+        collectives inside; on the CPU and over gloo the pieces run
+        eagerly.  Metrics are stacked over the chunk as the JAX scan
+        stacks them, in float32, which holds the sample counts exactly
+        below 2^24 (a step's rays times ``max_samples_per_ray``; a larger
+        configuration raises ValueError)."""
         if chunk_steps < 1:
             raise ValueError(f"make_train_chunk: want chunk_steps >= 1, got "
                              f"{chunk_steps}")
+        t = self.cfg.training
+        rays = t.batch_size
+        if t.sampling_strategy.get("pixs") == "entire_img":
+            rays = max(rays, self.train_dataset.n_pixels)
+        if rays * t.max_samples_per_ray >= 2**24:
+            raise ValueError(
+                f"make_train_chunk: {rays} rays x {t.max_samples_per_ray} "
+                f"samples a step: the float32 metrics hold counts below 2^24")
 
         def chunk(state: TrainState, elapse_times=None):
             first = state.step
@@ -569,7 +642,8 @@ class Trainer:
             outs, i = [], 0
             for kind, n in self._pieces(state.step, chunk_steps):
                 outs.append(self._run_piece(
-                    state, kind, n, None if ets is None else ets[i:i + max(n, 1)]))
+                    state, kind, n, None if ets is None else ets[i:i + max(n, 1)],
+                    group))
                 i += n
             return first, self._metric_keys, torch.cat(
                 [m for m in outs if m is not None])
@@ -591,23 +665,25 @@ class Trainer:
             step, n = step + 1, n - 1
         return out
 
-    def _piece_body(self, state: TrainState, kind: str, n: int, ets):
+    def _piece_body(self, state: TrainState, kind: str, n: int, ets,
+                    group=None):
         """A piece on the state's own tensors: the grid update (group and
         grid), then n steps; returns the (n, metrics) stacked metrics, or
         None for a lone grid update.  ``ets``: None or an (n,) tensor of
         elapse times (the grid update reads the first)."""
         if kind != "step":
             grid = state.grid
-            self.grid_update(state, None if ets is None else ets[0])
+            self.grid_update(state, None if ets is None else ets[0], group)
             state.grid = _write_into(grid, state.grid)
         rows = []
         for i in range(n):
             uss = state.uss_stats
-            m = self.train_step(state, None if ets is None else ets[i])
+            m = self.train_step(state, None if ets is None else ets[i], group)
             if uss is not None:
                 state.uss_stats = _write_into(uss, state.uss_stats)
             keys = [k for k in METRIC_KEYS if k in m]
             self._metric_keys = keys
+            self._metric_dtypes = [m[k].dtype for k in keys]
             rows.append(torch.stack([m[k].float() for k in keys]))
         return torch.stack(rows) if rows else None
 
@@ -628,30 +704,45 @@ class Trainer:
             state.grid = state.grid._replace(
                 update_step=state.grid.update_step + 1)
 
-    def _run_piece(self, state: TrainState, kind: str, n: int, ets):
+    def _graphed(self, group) -> bool:
+        """Pieces run as CUDA graphs: on the card, alone or over NCCL (a
+        gloo group's collectives go through the host)."""
+        return self.device.type == "cuda" and (
+            group is None or dist.get_backend(group) == "nccl")
+
+    def state_graphs(self, state: TrainState) -> _StateGraphs:
+        """``state``'s graph set: the trainer's, made anew (the old one
+        dropped) for another state or one whose tensors or generators were
+        rebound."""
+        if self._graphs is None or not self._graphs.holds(state):
+            self._graphs = _StateGraphs(state)
+        return self._graphs
+
+    def _run_piece(self, state: TrainState, kind: str, n: int, ets,
+                   group=None):
         dev = self.device
-        if dev.type != "cuda":
+        if not self._graphed(group):
             et = None if ets is None else torch.from_numpy(ets).to(dev)
-            return self._piece_body(state, kind, n, et)
-        graphs = self._graphs
-        if graphs is None or not graphs.holds(state):
-            graphs = self._graphs = _StateGraphs(state)
+            return self._piece_body(state, kind, n, et, group)
+        graphs = self.state_graphs(state)
         if self._graph_stream is None:
             self._graph_stream = torch.cuda.Stream(dev)
         stream, here = self._graph_stream, torch.cuda.current_stream(dev)
-        key = (kind, n) + self._piece_flags(state, kind)
+        key = (kind, n, group) + self._piece_flags(state, kind)
         g = graphs.graphs.get(key)
         if g is None and key not in graphs.warm:
-            # the warm-up: the piece eagerly, on the capture's stream
+            # the warm-up: the piece eagerly, on the capture's stream (a
+            # group's communicator and collectives run once before capture)
             stream.wait_stream(here)
             with torch.cuda.stream(stream):
                 et = None if ets is None else torch.from_numpy(ets).to(dev)
-                out = self._piece_body(state, kind, n, et)
+                out = self._piece_body(state, kind, n, et, group)
             here.wait_stream(stream)
             graphs.warm.add(key)
             return out
         if g is None:
-            g = graphs.graphs[key] = self._capture(state, graphs, kind, n, ets)
+            g = graphs.graphs[key] = self._capture(state, graphs, kind, n, ets,
+                                                   group)
         if ets is not None:
             g.ets.copy_(torch.from_numpy(ets).pin_memory(), non_blocking=True)
         g.graph.replay()
@@ -660,22 +751,29 @@ class Trainer:
         return None if g.metrics is None else g.metrics.clone()
 
     def _capture(self, state: TrainState, graphs: _StateGraphs, kind: str,
-                 n: int, ets) -> _Graph:
+                 n: int, ets, group=None) -> _Graph:
         """Capture a piece (PyTorch's whole-network recipe: gradients set
         to None first, so backward allocates them from the graph's pool);
         capture runs nothing on the card, so the host counters the body
-        moved are set back."""
+        moved are set back.  Under a group the capture is thread-local:
+        the communicator's watchdog thread keeps querying its events."""
         dev = self.device
         et = None if ets is None else torch.empty(
             ets.shape, dtype=torch.float32, device=dev)
         state.optimizer.zero_grad(set_to_none=True)
         step, grid = state.step, state.grid
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.generator)
+        for gen in (state.generator, state.shard_generator):
+            if gen is not None:
+                graph.register_generator_state(gen)
+        if graphs.pool is None:
+            graphs.pool = torch.cuda.graph_pool_handle()
         launches = GraphLaunches()
+        mode = "global" if group is None else "thread_local"
         with launches.capture(), torch.cuda.graph(
-                graph, pool=graphs.pool, stream=self._graph_stream):
-            metrics = self._piece_body(state, kind, n, et)
+                graph, pool=graphs.pool, stream=self._graph_stream,
+                capture_error_mode=mode):
+            metrics = self._piece_body(state, kind, n, et, group)
         state.step, state.grid = step, grid
         return _Graph(graph, launches, et, metrics)
 
