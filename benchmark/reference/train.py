@@ -1,0 +1,174 @@
+"""The reference's training steps, in plain PyTorch.
+
+From one seed and the loaded room it builds the weights, the VIRUS grid
+and the random stream as the program does (one ``torch.Generator`` on the
+device, the same draws in the same order: the table, the MLP layers, the
+grid's initial probabilities, then each grid update's two batches and its
+position noise, each step's batch and march jitter), and runs steps:
+
+- the grid update before every step whose index is a multiple of
+  ``occ_grid.update_interval``;
+- the batch (``dataset.sample_batch``), the march (``march.py``: the
+  constant-dt closed form or the exponential lattice, the occupancy probe
+  and the slot selection), the compaction to the sample budget where the
+  configuration has one, the model (``model.py``) and the compositing
+  (``renderer.py``, ``composite.py``);
+- the colour, ToF and USS losses (``loss.py``), the gradient by autograd,
+  and Adam (``optax.adam`` with eps 1e-15: the bias-corrected update).
+
+Everything the trainer derives from the configuration and the scene (the
+metric-to-cube conversions of the loss and the grid, the batch sizes and
+sensors of the grid update, the budget) is worked out here again.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from benchmark.reference.dataset import sample_batch
+from benchmark.reference.loss import LossWeights, compute_loss
+from benchmark.reference.model import PlainNGP
+from benchmark.reference.occupancy_grid import (
+    OccGridHParams,
+    occ_grid_init,
+    occ_grid_update,
+)
+from benchmark.reference.renderer import render_rays
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-15
+
+
+class StepsRecord(dict):
+    """``losses`` (each step's), ``params0`` and ``params`` (the leaves
+    before the first step and after the last), ``grads1`` (the first
+    step's gradient), ``grid1`` (the probabilities after the first grid
+    update), ``grid`` (the VIRUS grid's state after the last update),
+    ``names`` (the leaves' names) and ``model`` (the ``PlainNGP`` as the
+    last step left it)."""
+
+
+def _sample_budget(cfg) -> Optional[int]:
+    t = cfg.training
+    budget = t.sample_budget
+    if budget is None:
+        budget = 0 if cfg.exp_step_factor != 0.0 else t.batch_size * min(
+            32, t.max_samples_per_ray)
+    return budget if budget > 0 else None
+
+
+def _grid_sensors(sensors):
+    if "RGBD" in sensors:
+        return ("random", "RGBD"), ("random", "RGBD")
+    if "ToF" in sensors and "USS" in sensors:
+        return ("valid_tof", "ToF"), ("valid_uss", "USS")
+    if "ToF" in sensors:
+        return ("valid_tof", "ToF"), ("valid_tof", "ToF")
+    if "USS" in sensors:
+        return ("valid_uss", "USS"), ("valid_uss", "USS")
+    raise ValueError("the grid update needs a depth sensor")
+
+
+def run_steps(cfg, dataset, scene, seed: int, n_steps: int,
+              tf32: bool = False) -> StepsRecord:
+    """``n_steps`` steps from ``seed``; ``tf32`` lets the matrix products
+    round their inputs to TF32 (the control)."""
+    if cfg.model.grid_type != "occ" or cfg.model.encoder_type != "hash" \
+            or cfg.model.hash_variant != "additive":
+        raise ValueError("the reference covers the VIRUS grid and the additive hash")
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        return _run_steps(cfg, dataset, scene, seed, n_steps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def _run_steps(cfg, dataset, scene, seed: int, n_steps: int) -> StepsRecord:
+    dev = dataset.device
+    t, og, m = cfg.training, cfg.occ_grid, cfg.model
+    w2c = float(scene.w2c(1.0, only_scale=True))
+    weights = LossWeights(color=t.color_loss_w, rgbd=t.rgbd_loss_w,
+                          tof=t.tof_loss_w, uss=t.uss_loss_w,
+                          uss_depth_tol=float(0.03 * w2c), distortion=0.0)
+    hp = OccGridHParams(
+        grid_size=m.grid_size, scale=m.scale,
+        false_detection_prob_every_m=float(og.false_detection_prob_every_m / w2c),
+        std_every_m=float(og.std_every_m * w2c),
+        nerf_pos_noise_every_m=float(og.nerf_pos_noise_every_m * w2c),
+        nerf_threshold_max=og.nerf_threshold_max,
+        nerf_threshold_slope=og.nerf_threshold_slope,
+        decay_warmup_steps=og.decay_warmup_steps,
+        update_interval=og.update_interval,
+    )
+    b_ray = max(1, int(og.batch_size * og.batch_ratio_ray_update))
+    b_nerf = max(1, og.batch_size - int(og.batch_size * og.batch_ratio_ray_update))
+    ray_sel, nerf_sel = _grid_sensors(t.sensors)
+    budget = _sample_budget(cfg)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(seed))
+    model = PlainNGP(cfg, g, dev)
+    grid = occ_grid_init(hp, generator=g, device=dev)
+    mu = [torch.zeros_like(p) for p in model.params]
+    nu = [torch.zeros_like(p) for p in model.params]
+    rec = StepsRecord(names=list(model.names), losses=[],
+                      params0=[p.detach().clone() for p in model.params])
+    for step in range(n_steps):
+        if step % og.update_interval == 0:
+            ray_b = sample_batch(dataset, g, b_ray, {"imgs": "all", "pixs": ray_sel[0]})
+            nerf_b = sample_batch(dataset, g, b_nerf, {"imgs": "all", "pixs": nerf_sel[0]})
+            noise = torch.rand((b_nerf, hp.M, 3), generator=g, device=dev) * 2.0 - 1.0
+            with torch.no_grad():
+                grid = occ_grid_update(
+                    grid, hp, model.density,
+                    ray_batch={"rays_o": ray_b.rays_o, "rays_d": ray_b.rays_d,
+                               "meas": ray_b.depths[ray_sel[1]]},
+                    nerf_batch={"rays_o": nerf_b.rays_o, "rays_d": nerf_b.rays_d,
+                                "meas": nerf_b.depths[nerf_sel[1]]},
+                    nerf_noise=noise)
+            if "grid1" not in rec:
+                rec["grid1"] = grid.occ_3d_grid.clone()
+        batch = sample_batch(dataset, g, t.batch_size, t.sampling_strategy)
+        noise = torch.rand((t.batch_size,), generator=g, device=dev)
+        results = render_rays(
+            model, grid.occ_bool, batch.rays_o, batch.rays_d, noise,
+            exp_step_factor=cfg.exp_step_factor, max_samples=t.max_samples_per_ray,
+            n_candidates=t.march_candidates, march_resolution=t.march_resolution,
+            sample_budget=budget)
+        loss, _ = compute_loss(results, batch, weights, tuple(t.sensors))
+        grads = torch.autograd.grad(loss, model.params)
+        rec["losses"].append(float(loss.detach()))
+        if step == 0:
+            rec["grads1"] = [gr.detach().clone() for gr in grads]
+        count = torch.tensor(step + 1, dtype=torch.float32, device=dev)
+        bc1 = 1.0 - torch.pow(torch.tensor(ADAM_B1, device=dev), count)
+        bc2 = 1.0 - torch.pow(torch.tensor(ADAM_B2, device=dev), count)
+        with torch.no_grad():
+            for p, gr, m1, v1 in zip(model.params, grads, mu, nu):
+                m1.mul_(ADAM_B1).add_((1.0 - ADAM_B1) * gr)
+                v1.mul_(ADAM_B2).add_((1.0 - ADAM_B2) * gr * gr)
+                p.add_(-t.lr * (m1 / bc1) / (torch.sqrt(v1 / bc2) + ADAM_EPS))
+        del results, loss, grads
+    rec["params"] = [p.detach().clone() for p in model.params]
+    rec.update(grid=grid, model=model)
+    return rec
+
+
+def leaf_norms(tensors: List[torch.Tensor]) -> List[float]:
+    return [float(torch.linalg.vector_norm(x.double())) for x in tensors]
+
+
+def worst_leaf_gap(got: List[float], want: List[float],
+                   keep: Optional[List[bool]] = None) -> Dict[str, float]:
+    """The largest ``|got - want| / max(want, median of want)`` over the
+    leaves (``keep`` selects them), and the leaf it is on."""
+    idx = [i for i in range(len(want)) if keep is None or keep[i]]
+    med = sorted(want[i] for i in idx)[len(idx) // 2]
+    worst, at = 0.0, -1
+    for i in idx:
+        gap = abs(got[i] - want[i]) / max(want[i], med, 1e-30)
+        if gap > worst or at < 0:
+            worst, at = gap, i
+    return {"gap": worst, "leaf": at}
