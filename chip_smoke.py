@@ -192,7 +192,21 @@ Phases, each printed as it finishes; any failure exits non-zero:
     launches (replay-aware), device ms and host ms, the replay-aware
     counts of B2 and the march held once against the device kernels the
     profiler saw; then ``python -m virus_nerf_tpu_torch.bench`` at 8 x 4
-    and at ``--scale 1.0`` (``kernels_ok`` true).
+    and at ``--scale 1.0`` (``kernels_ok`` true);
+27. the tracer's phase stamps (``utils/tracing.py``, the one-thread
+    ``csrc/trace_stamp.cu``): the bench configuration's chunk of 24 steps
+    as CUDA graphs on two trainers from one seed (deterministic mode), the
+    tracer off on one and on on the other, two chunks each: off, no stamp
+    launched and no graph holding one; on, seven stamps a step, one a
+    piece and one a grid update replay-aware (plus reset's own), each
+    graph holding its stamps, the phase counts equal to
+    ``trace_stamp_plain``'s over the same stamp sequence, no negative
+    phase sum, and every metric and the whole state bit for bit the
+    tracer-off run's; then one stamped chunk under ``torch.profiler``,
+    its device kernels split at the stamps (B2 only in ``adam``, the
+    march only in ``march``, B1 only in ``backward``) beside the stamps'
+    ms a step; then host ms a step with the tracer off and on in turns.
+    No path above launches a stamp.
 
 Launch counts are replay-aware (``ops.launch_counts``): a wrapper's count
 moves where it launches (at a capture, once), and each CUDA graph adds
@@ -977,6 +991,7 @@ def kernel_wrappers():
         group_segment_sum_tsf_sorted,
         segment_sum_sorted,
     )
+    from virus_nerf_tpu_torch.ops.trace_stamp import trace_stamp
     from virus_nerf_tpu_torch.ops.widen import widen_slabs_group
 
     return {"segment_sum": segment_sum_sorted, "fused_adam": adam_update_leaves_,
@@ -984,7 +999,7 @@ def kernel_wrappers():
             "segment_sum_factors": group_segment_sum_tsf_sorted,
             "widen_slabs": widen_slabs_group,
             "march_select": march_select, "march_lattice": march_lattice,
-            "marches": count_marches()}
+            "trace_stamp": trace_stamp, "marches": count_marches()}
 
 
 def reset_counts(wrappers):
@@ -2935,6 +2950,206 @@ def graph_turns(name, cfg, ds, scene, wrappers, dev, card, chunk=24,
     return out
 
 
+TRACE_STEP_PHASES = ("sample", "march", "forward", "loss", "backward", "adam",
+                     "stats")
+
+
+def stamp_sequence(pieces):
+    """The phases a chunk's pieces (``Trainer._pieces``) stamp, in order:
+    a piece's start, its grid update, then each step's seven."""
+    seq = []
+    for kind, n in pieces:
+        seq.append("between")
+        if kind != "step":
+            seq.append("grid_update")
+        seq += list(TRACE_STEP_PHASES) * n
+    return seq
+
+
+def stamp_kernel_phases(trace_path, seq):
+    """The device's kernels, copies and fills of a Chrome trace in time
+    order, split at the stamp kernels: {phase: {name: [us, calls]}} (each
+    stamp ends the phase ``seq`` names, counted from the last stamp back,
+    so records the profiler lost at its start shift nothing; what runs
+    after the last one is under "after"), and the stamps the trace
+    holds."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    work = sorted((e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    stamps = sum("trace_stamp_kernel" in e["name"] for e in work)
+    out, i = {}, len(seq) - stamps
+    for e in work:
+        if "trace_stamp_kernel" in e["name"]:
+            i += 1
+            continue
+        phase = seq[i] if 0 <= i < len(seq) else "after"
+        acc = out.setdefault(phase, {}).setdefault(_demangle(e["name"]),
+                                                   [0.0, 0])
+        acc[0] += e["dur"]
+        acc[1] += 1
+    return out, stamps
+
+
+def tracing_run(dev, wrappers, card, chunk=24):
+    """The tracer's phase stamps on the card (phase 27).  In deterministic
+    mode, the bench configuration's chunk of ``chunk`` steps as CUDA graphs
+    on two trainers from one seed, one with the tracer off and one with it
+    on, two chunks each (warm-up and capture, then replays).  Off: no stamp
+    launched and no graph holding one.  On: the replay-aware stamp
+    launches (seven a step, one a piece and one a grid update, plus
+    reset's own), each graph holding its stamps, the phase counts equal to
+    ``trace_stamp_plain``'s over the same stamp sequence, no negative
+    phase sum, and the metrics and the whole state bit for bit the
+    tracer-off run's.  Then, outside deterministic mode, one state holding
+    both graph sets (the key holds the tracer's state): one stamped chunk
+    under ``torch.profiler``, whose device kernels between two stamps are
+    the phase's (B2 only in ``adam``, the march only in ``march``, B1 only
+    in ``backward``), printed beside the stamps' ms a step of an
+    unprofiled chunk; then host ms a step with the tracer off and on, in
+    turns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from virus_nerf_tpu_torch.ops.trace_stamp import (
+        stamp_buffer,
+        trace_stamp,
+        trace_stamp_plain,
+    )
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+    from virus_nerf_tpu_torch.utils import tracing
+
+    ds, scene, _ = make_synthetic_dataset(n_images=16, img_wh=(160, 120),
+                                          device=dev)
+    cfg = bench_config()
+    slots = len(tracing.PHASES) + 1
+    try:
+        tr_off = Trainer(cfg, ds, scene=scene, device=dev)
+        tr_on = Trainer(cfg, ds, scene=scene, device=dev)
+        with deterministic():
+            off, on = tr_off.init_state(7), tr_on.init_state(7)
+            run_off = tr_off.make_train_chunk(chunk)
+            run_on = tr_on.make_train_chunk(chunk)
+            reset_counts(wrappers)
+            m_off = [run_off(off)[2] for _ in range(2)]
+            torch.cuda.synchronize()
+            off_stamps = read_counts(wrappers)["trace_stamp"]
+            tracing.enable()
+            m_on = [run_on(on)[2]]
+            torch.cuda.synchronize()
+            seq = stamp_sequence(tr_on._pieces(on.step, chunk))
+            reset_counts(wrappers)
+            tracing.reset()  # after the counts' reset, which zeroes replays
+            m_on.append(run_on(on)[2])
+            torch.cuda.synchronize()
+            snap = tracing.snapshot()
+            on_stamps = read_counts(wrappers)["trace_stamp"]
+            card_buf = tracing._clock(dev).cpu()
+            tracing.enable(False)
+        held = {name: {k[:2]: g.launches.held.get(trace_stamp, 0)
+                       for k, g in tr.state_graphs(st).graphs.items()}
+                for name, tr, st in (("off", tr_off, off), ("on", tr_on, on))}
+        want_held = {k: 7 * k[1] + 1 + (k[0] != "step") for k in held["on"]}
+        log(f"tracing: stamp launches over 48 steps with the tracer off "
+            f"{off_stamps}, stamps each graph holds {held}")
+        if off_stamps or any(held["off"].values()) or held["on"] != want_held:
+            fail(f"tracing: stamps off {off_stamps}, graphs hold {held}, want "
+                 f"none off and {want_held} on")
+        want = 7 * chunk + seq.count("between") + seq.count("grid_update") + 1
+        plain = stamp_buffer(slots, "cpu")
+        trace_stamp_plain(plain, slots - 1)
+        for p in seq:
+            trace_stamp_plain(plain, tracing.PHASES.index(p))
+        n_card, n_plain = card_buf[slots:2 * slots], plain[slots:2 * slots]
+        phase_ms = {p: snap.get(f"phase.{p}.ms", 0.0) for p in tracing.PHASES}
+        log(f"tracing: replayed chunk of {chunk} steps: stamp launches "
+            f"{on_stamps} (want {want}), phase counts {n_card.tolist()} "
+            f"(trace_stamp_plain over the same sequence {n_plain.tolist()}), "
+            f"graph captures {snap.get('count.trainer.captures')} and replays "
+            f"{snap.get('count.trainer.replays')}, phase ms {phase_ms}")
+        if on_stamps != want or not torch.equal(n_card, n_plain) or bool(
+                (card_buf[:slots] < 0).any()) or snap.get(
+                "count.trainer.captures") != 0:
+            fail(f"tracing: stamps {on_stamps} (want {want}), counts "
+                 f"{n_card.tolist()} against {n_plain.tolist()}, sums "
+                 f"{card_buf[:slots].tolist()}, snapshot {snap}")
+        if not torch.equal(torch.cat(m_off), torch.cat(m_on)):
+            fail(f"tracing: metrics differ with the tracer on: losses "
+                 f"{torch.cat(m_on)[:, 0].tolist()} against "
+                 f"{torch.cat(m_off)[:, 0].tolist()}")
+        assert_same_state("tracing on against off", on, off)
+        log(f"tracing: {2 * chunk} steps with the tracer on and off: every "
+            f"metric, parameters, moments, count, grid and generator "
+            f"bit-identical")
+        del tr_off, tr_on, off, on, m_off, m_on
+        torch.cuda.empty_cache()
+
+        tr = Trainer(cfg, ds, scene=scene, device=dev)
+        st = tr.init_state(7)
+        run = tr.make_train_chunk(chunk)
+        for on in (False, False, True, True):
+            tracing.enable(on)
+            run(st)
+        torch.cuda.synchronize()
+        tracing.reset()
+        run(st)
+        torch.cuda.synchronize()
+        snap = tracing.snapshot()  # the phases without the profiler
+        seq = stamp_sequence(tr._pieces(st.step, chunk))
+        tracing.reset()
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(st)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(path)
+            kernels, seen = stamp_kernel_phases(path, seq)
+        # the profiler may lose records at its start (see device_ms)
+        log(f"tracing: the profiler saw {seen} of the chunk's {len(seq)} "
+            f"stamps")
+        if not len(seq) - 8 <= seen <= len(seq):
+            fail(f"tracing: the profiler saw {seen} of {len(seq)} stamps")
+        attribution = {}
+        for p in (*tracing.PHASES, "after"):
+            ks = kernels.get(p, {})
+            top = sorted(ks.items(), key=lambda kv: -kv[1][0])[:4]
+            attribution[p] = {
+                "stamp_ms_a_step": snap.get(f"phase.{p}.ms", 0.0) / chunk,
+                "kernel_ms_a_step": sum(v[0] for v in ks.values()) / 1e3 / chunk,
+                "kernels": sum(v[1] for v in ks.values()),
+                "top": {k[:80]: [round(v[0] / 1e3 / chunk, 5), v[1]]
+                        for k, v in top}}
+            log(f"tracing: phase {p}: {attribution[p]}")
+        homes = {"fused_adam_kernel": "adam", "march_select_kernel": "march",
+                 "TransposedLoader": "backward"}  # B2, the march, B1
+        found = {k: [p for p, ks in kernels.items() if any(k in n for n in ks)]
+                 for k in homes}
+        if any(v != [homes[k]] for k, v in found.items()):
+            fail(f"tracing: kernels outside their phase: {found}")
+
+        # host ms a step, the tracer off and on in turns
+        turns = {"off": [], "on": []}
+        for kind in ("off", "on", "on", "off") * 2:
+            tracing.enable(kind == "on")
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            run(st)
+            torch.cuda.synchronize()
+            turns[kind].append(1e3 * (time.perf_counter() - tic) / chunk)
+        log(f"tracing: host ms a step with the tracer off {turns['off']}, on "
+            f"{turns['on']}; graphs {sorted(tr.state_graphs(st).graphs)}; on "
+            f"{card}")
+    finally:
+        tracing.enable(False)
+    del tr, st
+    torch.cuda.empty_cache()
+    return {"stamps_a_replayed_chunk": on_stamps, "phase_counts":
+            n_card.tolist(), "attribution": attribution,
+            "host_ms_a_step": turns}
+
+
 def bench_runs(card):
     """``python -m virus_nerf_tpu_torch.bench`` at 8 x 4 and at --scale
     1.0, in this process: kernels_ok true, a positive rate."""
@@ -3273,6 +3488,9 @@ def main() -> None:
              for name, cfg, ds, scene, *_ in graph_cases(dev, (None,) * 3)[:2]}
     benches = bench_runs(card)
 
+    # ---- 27. the tracer's phase stamps
+    traced = tracing_run(dev, wrappers, card)
+
     # ms: the kernel's calls of one step at the keys (B1, B3, B4) or table
     # (B5) of its path; fused Adam on the 16 x 2 hash table; one march at
     # the default configuration's S = 256 (each case under "cases")
@@ -3300,6 +3518,10 @@ def main() -> None:
     # a step's launches of the training paths: the RH2 and PSO runs'
     # evaluations march too, so theirs are counted in the training steps
     # alone
+    # the tracer is off on every path: no stamp launched
+    stamped = {p: c["trace_stamp"] for p, c in paths.items() if c["trace_stamp"]}
+    if stamped:
+        fail(f"stamps launched with the tracer off: {stamped}")
     step_counts = {p: c for p, c in dict(
         paths, rh2=rh2_step_launches, pso=pso_step_launches).items()
         if p in steps}
@@ -3358,6 +3580,9 @@ def main() -> None:
                                "scale1": scale1_step_launches,
                                "ngp": ngp_step_launches},
               pallas_counterpart=None),
+        # the tracer's phase stamp: off every path (the tracer is off)
+        entry("trace_stamp", "trace_stamp", "trace_stamp.cu", None, [],
+              traced),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -104,9 +104,13 @@ class TrainingConfig:
     # RH2 sweep, BASELINE.md round 5).  0 disables compaction explicitly.
     sample_budget: Optional[int] = None
     distortion_loss_w: float = 0.0
-    # Write a jax.profiler trace of one training chunk to this directory
-    # (None disables) — TPU equivalent of the reference's
-    # CUDA_LAUNCH_BLOCKING debugging hooks (reference: run.py:2).
+    # Profile the second training chunk and the evaluation after it into
+    # this directory (None disables): the tracer (utils/tracing.py) is on
+    # for the first two chunks, and their torch.profiler Chrome trace and
+    # the tracer's phase and span readings are written there
+    # (Trainer._train_chunks) — the counterpart
+    # of the reference's CUDA_LAUNCH_BLOCKING debugging hooks (reference:
+    # run.py:2).
     profile_dir: Optional[str] = None
 
 

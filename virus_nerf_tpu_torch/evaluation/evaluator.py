@@ -23,6 +23,11 @@ where it is missing).  ``density_slice`` probes the model's density on a
 horizontal slice, ``pack_lidar_scans`` packs LiDAR clouds for
 ``evaluate_depth(extra_sensor_data=...)`` and ``export_nerf_pointcloud``
 writes the NeRF's scans at several heights as a PCD.
+
+With the tracer on (``utils/tracing.py``) ``evaluate_depth`` is the span
+``evaluator.call``, with the spans ``evaluator.gt_scan``,
+``evaluator.render`` and ``evaluator.nnd`` (each ``nn_metrics`` call)
+inside.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from virus_nerf_tpu_torch.evaluation.geometry import (
 )
 from virus_nerf_tpu_torch.models.ngp import NGPModel
 from virus_nerf_tpu_torch.models.renderer import render_rays
+from virus_nerf_tpu_torch.utils import tracing
 from virus_nerf_tpu_torch.utils.deployment import density_in_chunks
 from virus_nerf_tpu_torch.utils.helpers import require_matplotlib, turbo
 
@@ -103,6 +109,7 @@ class Evaluator:
         self.n_pixels = dataset.n_pixels
 
     # ------------------------------------------------------------- rendering
+    @tracing.spanned("evaluator.render")
     def render_batched(
         self, model: NGPModel, occ_bool, rays_o: np.ndarray, rays_d: np.ndarray
     ) -> Dict[str, np.ndarray]:
@@ -294,6 +301,7 @@ class Evaluator:
         """Per-image scan origin = camera position (cube coords)."""
         return self.ds["poses"][img_idxs, :3, 3]
 
+    @tracing.spanned("evaluator.gt_scan")
     def _get_gt_data(self, img_idxs: np.ndarray):
         """GT 360-degree scan by ray-casting the GT slice raster
         (reference: training/trainer.py:534-571)."""
@@ -411,6 +419,7 @@ class Evaluator:
         )
 
     # ----------------------------------------------------------- depth eval
+    @tracing.spanned("evaluator.call")
     def evaluate_depth(
         self,
         model: NGPModel,
@@ -490,11 +499,12 @@ class Evaluator:
                 "_inv": (pos_gt, pos, False),
                 "_inv_360": (data_dict["GT"]["pos"], pos, False),
             }.items():
-                nn_dists, mean, median, inlier, too_close = M.nn_metrics(
-                    p, p_ref, dists, data_dict["GT"]["depths"], N,
-                    ref_pos_is_gt=ref_is_gt, zones=zones,
-                    inlier_threshold=ev.inlier_threshold,
-                )
+                with tracing.span("evaluator.nnd"):
+                    nn_dists, mean, median, inlier, too_close = M.nn_metrics(
+                        p, p_ref, dists, data_dict["GT"]["depths"], N,
+                        ref_pos_is_gt=ref_is_gt, zones=zones,
+                        inlier_threshold=ev.inlier_threshold,
+                    )
                 res[f"nn_dists{suffix}"] = nn_dists
                 res[f"nn_mean{suffix}"] = mean
                 res[f"nn_median{suffix}"] = median

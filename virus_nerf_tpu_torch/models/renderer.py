@@ -4,7 +4,10 @@ composite.
 Counterpart of ``render_rays`` (virus_nerf_tpu/models/renderer.py:27;
 reference: modules/rendering.py:12-228).  The march noise is an argument
 (the caller draws it), so tests can hand both implementations the same
-numbers.
+numbers.  Asked by the training step (``stamp_phases``), with the tracer
+on (``utils/tracing.py``), it stamps the ends of the ``march`` phase (the
+march and, on the budget path, the compaction up to the selected points)
+and of the ``forward`` phase (the encoder, the MLPs and the compositing).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from virus_nerf_tpu_torch.models.ngp import NGPModel
 from virus_nerf_tpu_torch.ops.composite import composite_rays, composite_stream
 from virus_nerf_tpu_torch.ops.intersection import ray_aabb_intersect
 from virus_nerf_tpu_torch.ops.ray_march import march_rays_train
+from virus_nerf_tpu_torch.utils import tracing
 
 
 def render_rays(
@@ -33,6 +37,7 @@ def render_rays(
     march_resolution: int = 1024,
     sample_budget: Optional[int] = None,
     need_ws: bool = False,
+    stamp_phases: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Render a batch of rays.
 
@@ -45,6 +50,9 @@ def render_rays(
         need_ws: with ``sample_budget``, also scatter the stream's weights
             back to the dense (N, max_samples) 'ws' (the distortion loss
             reads them); the dense layout always returns 'ws'.
+        stamp_phases: stamp the training step's ``march`` and ``forward``
+            phases (the trainer's step; the evaluator's renders stamp
+            nothing).
     Returns:
         'opacity', 'depth', 'rgb', 'deltas', 'ts', 'valid', 'ws' (see
         ``need_ws``) and the counters 'rm_samples', 'vr_samples',
@@ -58,6 +66,8 @@ def render_rays(
         exp_step_factor=exp_step_factor, max_samples=max_samples,
         n_candidates=n_candidates, march_resolution=march_resolution,
     )
+    if sample_budget is None and stamp_phases:
+        tracing.stamp("march", rays_o.device)
     out: Dict[str, torch.Tensor] = {
         "deltas": march.deltas,
         "ts": march.ts,
@@ -116,6 +126,8 @@ def render_rays(
             torch.arange(sample_budget, device=rays_o.device) < flat_valid.sum()
         )
         pts = march.xyzs.reshape(-1, 3)[sel]
+        if stamp_phases:
+            tracing.stamp("march", rays_o.device)
         ray_id = torch.div(sel, S, rounding_mode="floor")
         drs = rays_d[ray_id]
         sig_c, rgb_c = model(pts, drs)
@@ -145,4 +157,6 @@ def render_rays(
     out["opacity"] = opacity
     out["depth"] = depth
     out["rgb"] = rgb_fg + rgb_bg * (1.0 - opacity)[:, None]
+    if stamp_phases:
+        tracing.stamp("forward", rays_o.device)
     return out

@@ -82,6 +82,8 @@ _SIGNATURES = {
     "vn_march_max_samples": (),
     # t1, noise, ts, dts, n, K, esf, lo, hi, stream
     "vn_march_lattice": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # buf, slots, phase, stream
+    "vn_trace_stamp": (_P, _I, _I, _P),
 }
 
 

@@ -73,6 +73,7 @@ the same updates at the same steps).
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -124,6 +125,7 @@ from virus_nerf_tpu_torch.utils.distributed import (
     reduce_metrics,
     world_size,
 )
+from virus_nerf_tpu_torch.utils import tracing
 from virus_nerf_tpu_torch.utils.logging import make_logger
 
 METRIC_KEYS = (
@@ -474,6 +476,7 @@ class Trainer:
                            else None),
         )
         noise = torch.rand((b,), generator=g, device=self.device)
+        tracing.stamp("sample", self.device)
         return self.train_step_on(state, batch, noise, group)
 
     def train_step_on(self, state: TrainState, batch: Batch, noise,
@@ -493,17 +496,20 @@ class Trainer:
             n_candidates=t.march_candidates,
             march_resolution=t.march_resolution,
             sample_budget=self._shard_budget(world_size(group)),
-            need_ws=self.loss_weights.distortion > 0.0,
+            need_ws=self.loss_weights.distortion > 0.0, stamp_phases=True,
         )
         loss, loss_dict = compute_loss(
             results, batch,
             with_device_weights(self.loss_weights, self.device_loss_weights),
             tuple(t.sensors),
         )
+        tracing.stamp("loss", self.device)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         all_reduce_grads_mean_(state.model.parameters(), group)
+        tracing.stamp("backward", self.device)
         state.optimizer.step()
+        tracing.stamp("adam", self.device)
         state.step += 1
         with torch.no_grad():
             metrics = {
@@ -524,6 +530,7 @@ class Trainer:
                     all_gather_cat(results["depth"].detach(), group),
                     self.uss_mask,
                 )
+        tracing.stamp("stats", self.device)
         return metrics
 
     # ------------------------------------------------------------ grid update
@@ -640,13 +647,14 @@ class Trainer:
                 raise ValueError(f"chunk: want {chunk_steps} elapse times, got "
                                  f"{ets.shape[0]}")
             outs, i = [], 0
-            for kind, n in self._pieces(state.step, chunk_steps):
-                outs.append(self._run_piece(
-                    state, kind, n, None if ets is None else ets[i:i + max(n, 1)],
-                    group))
-                i += n
-            return first, self._metric_keys, torch.cat(
-                [m for m in outs if m is not None])
+            with tracing.span("trainer.chunk"):
+                for kind, n in self._pieces(state.step, chunk_steps):
+                    outs.append(self._run_piece(
+                        state, kind, n,
+                        None if ets is None else ets[i:i + max(n, 1)], group))
+                    i += n
+                return first, self._metric_keys, torch.cat(
+                    [m for m in outs if m is not None])
 
         return chunk
 
@@ -670,11 +678,15 @@ class Trainer:
         """A piece on the state's own tensors: the grid update (group and
         grid), then n steps; returns the (n, metrics) stacked metrics, or
         None for a lone grid update.  ``ets``: None or an (n,) tensor of
-        elapse times (the grid update reads the first)."""
+        elapse times (the grid update reads the first).  With the tracer on
+        it stamps the ``between`` phase first and ``grid_update`` after the
+        grid update."""
+        tracing.stamp("between", self.device)
         if kind != "step":
             grid = state.grid
             self.grid_update(state, None if ets is None else ets[0], group)
             state.grid = _write_into(grid, state.grid)
+            tracing.stamp("grid_update", self.device)
         rows = []
         for i in range(n):
             uss = state.uss_stats
@@ -718,8 +730,13 @@ class Trainer:
             self._graphs = _StateGraphs(state)
         return self._graphs
 
+    @tracing.spanned("trainer.piece")
     def _run_piece(self, state: TrainState, kind: str, n: int, ets,
                    group=None):
+        """One piece: eagerly off the card; on it the piece's warm-up, its
+        capture or a replay of its graph, keyed by the piece, the host
+        flags its body reads and whether the tracer is on (a stamped graph
+        never stands in for an unstamped one)."""
         dev = self.device
         if not self._graphed(group):
             et = None if ets is None else torch.from_numpy(ets).to(dev)
@@ -728,21 +745,24 @@ class Trainer:
         if self._graph_stream is None:
             self._graph_stream = torch.cuda.Stream(dev)
         stream, here = self._graph_stream, torch.cuda.current_stream(dev)
-        key = (kind, n, group) + self._piece_flags(state, kind)
+        key = ((kind, n, group) + self._piece_flags(state, kind)
+               + (tracing.enabled(),))
         g = graphs.graphs.get(key)
         if g is None and key not in graphs.warm:
             # the warm-up: the piece eagerly, on the capture's stream (a
             # group's communicator and collectives run once before capture)
-            stream.wait_stream(here)
-            with torch.cuda.stream(stream):
-                et = None if ets is None else torch.from_numpy(ets).to(dev)
-                out = self._piece_body(state, kind, n, et, group)
-            here.wait_stream(stream)
+            with tracing.span("trainer.warm"):
+                stream.wait_stream(here)
+                with torch.cuda.stream(stream):
+                    et = None if ets is None else torch.from_numpy(ets).to(dev)
+                    out = self._piece_body(state, kind, n, et, group)
+                here.wait_stream(stream)
             graphs.warm.add(key)
             return out
         if g is None:
-            g = graphs.graphs[key] = self._capture(state, graphs, kind, n, ets,
-                                                   group)
+            with tracing.span("trainer.capture"):
+                g = graphs.graphs[key] = self._capture(state, graphs, kind, n,
+                                                       ets, group)
         if ets is not None:
             g.ets.copy_(torch.from_numpy(ets).pin_memory(), non_blocking=True)
         g.graph.replay()
@@ -847,8 +867,16 @@ class Trainer:
         steps take the host clock at its start plus the measured seconds a
         step (the last chunk's, the first chunk's excepted: its pieces run
         eagerly and are captured), as the JAX loop's ``ets``
-        (trainer.py:574-601)."""
+        (trainer.py:574-601).  With ``training.profile_dir`` the tracer is
+        on for the first two chunks (the first warms the stamped graphs
+        up), and the second and the evaluation after it run
+        under one ``torch.profiler`` session, as the JAX loop profiles its
+        second chunk (trainer.py:619-627): see :meth:`_profiled`.  The
+        tracer is put back as it was once the files are written."""
         cfg = self.cfg
+        profile_dir = cfg.training.profile_dir
+        was = tracing.enabled()
+        tracing.enable(was or bool(profile_dir))
         max_steps = cfg.training.max_steps
         chunk = max(1, min(cfg.evaluation.eval_every_n_steps,
                            max_steps - state.step))
@@ -857,23 +885,58 @@ class Trainer:
             chunk -= chunk % interval
         clock = lambda: time.time() - tic  # noqa: E731
         chunks, start, dt_est = {}, state.step, 0.0
-        while state.step < max_steps:
-            n = min(chunk, max_steps - state.step)
-            if n not in chunks:
-                chunks[n] = self.make_train_chunk(n)
-            t0 = clock()
-            ets = (t0 + dt_est * np.arange(n)
-                   if cfg.training.real_time_simulation else None)
-            first, keys, metrics = chunks[n](state, ets)
-            vals = metrics.cpu().numpy()  # one transfer; waits for the chunk
-            if first > start:
-                dt_est = (clock() - t0) / n
-            mnn = self._intermediate_eval(state, clock())
-            last = self._log_chunk(first, keys, vals, tic, mnn)
-            if cfg.training.debug_mode:
-                self._debug_check_state(state, last, state.step)
-            if self._over_time(tic, state.step):
-                break
+        try:
+            while state.step < max_steps:
+                n = min(chunk, max_steps - state.step)
+                if n not in chunks:
+                    chunks[n] = self.make_train_chunk(n)
+                t0 = clock()
+                ets = (t0 + dt_est * np.arange(n)
+                       if cfg.training.real_time_simulation else None)
+                profiled = bool(profile_dir) and state.step > start
+                with (self._profiled(profile_dir, state.step) if profiled
+                      else contextlib.nullcontext()):
+                    first, keys, metrics = chunks[n](state, ets)
+                    vals = metrics.cpu().numpy()  # one transfer; waits
+                    if first > start:
+                        dt_est = (clock() - t0) / n
+                    mnn = self._intermediate_eval(state, clock())
+                if profiled:
+                    profile_dir = None
+                    tracing.enable(was)
+                last = self._log_chunk(first, keys, vals, tic, mnn)
+                if cfg.training.debug_mode:
+                    self._debug_check_state(state, last, state.step)
+                if self._over_time(tic, state.step):
+                    break
+        finally:
+            tracing.enable(was)
+
+    @contextlib.contextmanager
+    def _profiled(self, profile_dir: str, step: int):
+        """The body under ``torch.profiler`` (the card's activity too on a
+        CUDA trainer), the tracer reset once the profiler has started;
+        then writes the Chrome trace ``chunk_<step>.trace.json`` (the
+        tracer's spans are ranges in it) and the tracer's readings,
+        ``chunk_<step>.tracer.json`` (the chunk's phases and the
+        evaluation's spans), to ``profile_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            tracing.reset()
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        name = os.path.join(profile_dir, f"chunk_{step}")
+        prof.export_chrome_trace(name + ".trace.json")
+        with open(name + ".tracer.json", "w") as f:
+            json.dump(tracing.snapshot(), f, indent=1)
+        self.logger.info("profiled the chunk at step %d and its evaluation "
+                         "into %s", step, profile_dir)
 
     # ------------------------------------------------------------ debug mode
     def _debug_check_state(self, state: TrainState, m: Dict[str, float],
