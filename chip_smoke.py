@@ -206,13 +206,25 @@ Phases, each printed as it finishes; any failure exits non-zero:
     its device kernels split at the stamps (B2 only in ``adam``, the
     march only in ``march``, B1 only in ``backward``) beside the stamps'
     ms a step; then host ms a step with the tracer off and on in turns.
-    No path above launches a stamp.
+    No path above launches a stamp;
+28. the evaluator's GT slice scan (E1, ``csrc/slice_scan.cu``) on the ETHZ
+    run's 800,000-point cloud (after 23) and the RH2 run's 400,000 (after
+    its 23), at the run's ``res_map`` and height band, on the evaluator's
+    scan rays from 16 test origins (16 x ``res_angular`` rays): the hit
+    cells ``torch.equal`` to ``slice_scan_plain``'s on the same cells,
+    band, rays and radii, and the depths equal to ``Scene.get_slice_scan``'s
+    (NaN for NaN); timed: E1 (events, and profiler device time), the plain
+    walk, ``get_slice_scan`` (the scan before E1), a whole
+    ``SliceScan.depths`` call and the set-up (warm), beside E1's byte
+    bound.
 
 Launch counts are replay-aware (``ops.launch_counts``): a wrapper's count
 moves where it launches (at a capture, once), and each CUDA graph adds
 what it holds at every replay.  On every path the renderer's marches on
 the card are counted, and each must have launched ``march_select`` once
-(no path launches the standalone lattice).  The line before the last is the card's name and
+(no path launches the standalone lattice).  The depth evaluations on the
+card (``Evaluator.evaluate_depth``) are counted too, and each must have
+launched E1 once.  The line before the last is the card's name and
 power limit (nvidia-smi); before it, one JSON line with the kernels'
 results.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.
@@ -991,6 +1003,7 @@ def kernel_wrappers():
         group_segment_sum_tsf_sorted,
         segment_sum_sorted,
     )
+    from virus_nerf_tpu_torch.ops.slice_scan import slice_scan
     from virus_nerf_tpu_torch.ops.trace_stamp import trace_stamp
     from virus_nerf_tpu_torch.ops.widen import widen_slabs_group
 
@@ -999,7 +1012,8 @@ def kernel_wrappers():
             "segment_sum_factors": group_segment_sum_tsf_sorted,
             "widen_slabs": widen_slabs_group,
             "march_select": march_select, "march_lattice": march_lattice,
-            "trace_stamp": trace_stamp, "marches": count_marches()}
+            "trace_stamp": trace_stamp, "slice_scan": slice_scan,
+            "marches": count_marches(), "evaluations": count_evaluations()}
 
 
 def reset_counts(wrappers):
@@ -1288,6 +1302,126 @@ def check_marches(name, launches):
         fail(f"{name}: {launches['march_select']} march_select launches over "
              f"{launches['marches']} marches, {launches['march_lattice']} "
              f"standalone lattice launches; want one fused launch a march")
+
+
+# ------------------------------------------- the GT slice scan (E1, 28)
+# the paths that evaluate depth on the card: each evaluation launches E1
+EVALUATING = ("xor", "slabs", "ethz", "rh2", "pso", "population",
+              "eval_budget")
+
+
+def count_evaluations():
+    """Count the depth evaluations on the card: ``Evaluator.evaluate_depth``
+    wrapped in a counter (``.launches``, read and reset with the kernel
+    counts) of its calls by an evaluator on a CUDA device.  Every path is
+    held to one E1 launch (``slice_scan``) an evaluation by it."""
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+    from virus_nerf_tpu_torch.ops.launch_counts import register
+
+    evaluate = Evaluator.evaluate_depth
+
+    def counted(self, *args, **kwargs):
+        if self.device.type == "cuda":
+            counted.launches += 1
+        return evaluate(self, *args, **kwargs)
+
+    counted.launches = 0
+    Evaluator.evaluate_depth = counted
+    return register(counted)
+
+
+def check_gt_scans(paths):
+    """One E1 launch a depth evaluation on the card, on every path, and
+    at least one evaluation on each path of :data:`EVALUATING`."""
+    scans = {p: (c["slice_scan"], c["evaluations"]) for p, c in paths.items()}
+    off = {p: v for p, v in scans.items() if v[0] != v[1]}
+    idle = [p for p in EVALUATING if scans[p][1] <= 0]
+    log(f"E1 launches and depth evaluations a path: "
+        f"{ {p: v for p, v in scans.items() if v != (0, 0)} }")
+    if off or idle:
+        fail(f"E1 launches != depth evaluations on {off}; no evaluation on "
+             f"{idle}")
+
+
+def check_slice_scan(name, trainer, card, n_origins: int = 16):
+    """Phase 28 on a recorded room: E1 against its plain version bit for
+    bit, the depths against ``Scene.get_slice_scan``, and the times of the
+    module doc.  Returns the numbers."""
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+    from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays
+    from virus_nerf_tpu_torch.ops.slice_scan import (
+        SliceScan,
+        slice_scan,
+        slice_scan_plain,
+    )
+
+    cfg, scene, dev = trainer.cfg, trainer.scene, trainer.device
+    res, tol = cfg.evaluation.res_map, cfg.evaluation.height_tolerance
+    ev = Evaluator(cfg, trainer.test_dataset, scene, img_wh=trainer.img_wh,
+                   device=dev)
+    idxs = np.arange(n_origins) % ev.n_images
+    rays_o, rays_d = create_scan_rays(ev._scan_origins(idxs),
+                                      cfg.evaluation.res_angular)
+    rays_o = np.array(rays_o, np.float64)
+    setup_ms = []
+    for _ in range(3):  # the first makes the card's first copies
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        scan = SliceScan(scene, res, dev)
+        torch.cuda.synchronize()
+        setup_ms.append(1e3 * (time.perf_counter() - tic))
+    band, rays = scan.inputs(rays_o, rays_d, tol)
+    rays_t = torch.from_numpy(rays).to(dev)
+
+    def e1():
+        return slice_scan(scan.cells, band, res, rays_t, scan.radii)
+
+    got = e1().cpu()
+    plain_in = (scan.cells.cpu(), band, res, torch.from_numpy(rays),
+                scan.radii.cpu())
+    tic = time.perf_counter()
+    want = slice_scan_plain(*plain_in)
+    plain_ms = 1e3 * (time.perf_counter() - tic)
+    tic = time.perf_counter()
+    numpy_depths = scene.get_slice_scan(res, rays_o, rays_d, tol,
+                                        rays_o_in_world_coord=False)[1]
+    numpy_ms = 1e3 * (time.perf_counter() - tic)
+    call_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        depths = scan.depths(rays_o, rays_d, tol)
+        call_ms.append(1e3 * (time.perf_counter() - tic))
+    n, m = rays.shape[0], scan.radii.shape[0]
+    ms = time_turns([e1])[0]
+    dev_ms = device_ms(e1, "slice_", per_call=2)  # the raster and the walk
+    words = (res * res + 31) // 32
+    # the band's cells, the raster zeroed then set, the rays in and the
+    # hits out, the radii
+    n_bytes = 4 * (band[1] - band[0]) + 2 * 4 * words + 36 * n + 8 * m
+    b_ms, b_by = bound_ms(n_bytes, 0)
+    hit = got.numpy() >= 0
+    same, same_depths = torch.equal(got, want), np.array_equal(
+        depths, numpy_depths, equal_nan=True)
+    log(f"{name} GT slice scan (E1): {n} rays x {m} samples at res {res}, "
+        f"{band[1] - band[0]:,} of {scan.cells.shape[0]:,} points in the band, "
+        f"{hit.mean():.4f} of the rays hit; hits equal to the plain walk's "
+        f"{same}, depths equal to get_slice_scan's {same_depths}; E1 {ms:.4f} "
+        f"ms (device {dev_ms:.4f}), bound {b_ms:.4f} ms ({b_by}); plain walk "
+        f"{plain_ms:.1f} ms, get_slice_scan {numpy_ms:.1f} ms, SliceScan.depths "
+        f"{[round(x, 2) for x in call_ms]} ms a call, set-up "
+        f"{[round(x, 1) for x in setup_ms]} ms; on {card}")
+    if not (same and same_depths):
+        fail(f"{name} GT slice scan: E1's hits or depths differ from the "
+             f"plain version's")
+    if not 0 < band[1] - band[0] < scan.cells.shape[0] or not hit.any():
+        fail(f"{name} GT slice scan: band {band}, no hit: not a room's scan")
+    return {"rays": n, "samples": m, "res": res,
+            "points": int(scan.cells.shape[0]), "band_points": band[1] - band[0],
+            "hit_share": float(hit.mean()), "max_abs_err": 0.0, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
+            "get_slice_scan_ms": numpy_ms, "depths_call_ms": call_ms,
+            "setup_ms": setup_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def launches_per_step(trainer, state, n_steps: int = 8):
@@ -3433,6 +3567,7 @@ def main() -> None:
         budget = {}
         budget_ethz_launches, budget["ethz"] = eval_budget(
             "ETHZ", trainer, state, wrappers, card)
+        e1 = {"ethz": check_slice_scan("ETHZ", trainer, card)}
         no_matplotlib_check(trainer, state, tmp)
         # the ETHZ room's Config() and training split, for phase 26
         ethz_case = (trainer.cfg, trainer.train_dataset, trainer.scene)
@@ -3447,6 +3582,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         budget_rh2_launches, budget["rh2"] = eval_budget(
             "RH2", trainer, state, wrappers, card)
+        e1["rh2"] = check_slice_scan("RH2", trainer, card)
         del trainer, state
         torch.cuda.empty_cache()
         pso_launches, pso_step_launches, pso_steps = pso_run(
@@ -3522,6 +3658,7 @@ def main() -> None:
     stamped = {p: c["trace_stamp"] for p, c in paths.items() if c["trace_stamp"]}
     if stamped:
         fail(f"stamps launched with the tracer off: {stamped}")
+    check_gt_scans(paths)
     step_counts = {p: c for p, c in dict(
         paths, rh2=rh2_step_launches, pso=pso_step_launches).items()
         if p in steps}
@@ -3583,6 +3720,11 @@ def main() -> None:
         # the tracer's phase stamp: off every path (the tracer is off)
         entry("trace_stamp", "trace_stamp", "trace_stamp.cu", None, [],
               traced),
+        # the port's own kernel: the GT slice scan, numpy on the host in
+        # the JAX package; one launch a depth evaluation on the card
+        entry("slice_scan", "slice_scan", "slice_scan.cu", None,
+              list(EVALUATING), e1["ethz"], rh2=e1["rh2"],
+              numpy_counterpart="virus_nerf_tpu/data/scene.py:101"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -780,3 +780,163 @@ def test_rh2_step_on_card_matches_cpu(cuda_device, tmp_path):
     diff = (sg.model.pos_table.detach().cpu() - sc.model.pos_table.detach()).abs()
     assert float((diff > 1e-6).float().mean()) <= 2e-3
     assert float(diff.max()) <= 2 * t.lr * (1 + 1e-5)
+
+
+# ------------------------------------------------ E1, the GT slice scan
+def _slice_room(seed, n_points, room_min, room_max, dtype):
+    """Walls and clutter inside a room's bounds."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(room_min, float), np.asarray(room_max, float)
+    q = n_points // 5
+    pts = [rng.uniform(lo, hi, (n_points - 4 * q, 3))]
+    for axis, side in ((0, lo), (0, hi), (1, lo), (1, hi)):
+        w = rng.uniform(lo, hi, (q, 3))
+        w[:, 1 - axis] = side[1 - axis] + (0.2 if side is lo else -0.2)
+        pts.append(w)
+    return np.concatenate(pts).astype(dtype)
+
+
+def _slice_cases():
+    """ETHZ's size (800,000 float32 points in fixed bounds) and an RH2-sized
+    room (400,000 float64 points, bounds from the cloud), 16 origins x 512
+    scan rays at res 512."""
+    from virus_nerf_tpu_torch.data.scene import Scene
+
+    ethz_min, ethz_max = [-3.0, -3.0, -0.4], [15.0, 9.0, 1.2]
+    ethz = Scene(_slice_room(7, 800_000, ethz_min, ethz_max, np.float32),
+                 np.array(ethz_min), np.array(ethz_max))
+    rh_pts = _slice_room(8, 400_000, [0.0, 0.0, 0.0], [7.2, 5.4, 2.6],
+                         np.float64)
+    rh2 = Scene(rh_pts)
+    rng = np.random.default_rng(9)
+    return {
+        "ethz": (ethz, rng.uniform([0, 0, 0.2], [12, 6, 0.6], (16, 3)), 0.05),
+        "rh2": (rh2, rng.uniform([1, 1, 1.0], [6, 4, 1.4], (16, 3)), 0.05),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("room", ["ethz", "rh2"])
+def test_slice_scan_kernel_is_bit_exact(cuda_device, room):
+    from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays
+    from virus_nerf_tpu_torch.ops.slice_scan import (
+        SliceScan,
+        slice_scan,
+        slice_scan_plain,
+    )
+
+    scene, origins_w, tol = _slice_cases()[room]
+    res = 512
+    rays_o, rays_d = create_scan_rays(scene.w2c(origins_w), 512)
+    assert rays_o.shape[0] == 8192
+    card = SliceScan(scene, res, cuda_device)
+    band, rays = card.inputs(np.array(rays_o, np.float64), rays_d, tol)
+    assert 0 < band[1] - band[0] < scene.point_cloud.shape[0]
+    got = slice_scan(card.cells, band, res,
+                     torch.from_numpy(rays).to(cuda_device), card.radii)
+    torch.cuda.synchronize()
+    want = slice_scan_plain(card.cells.cpu(), band, res,
+                            torch.from_numpy(rays), card.radii.cpu())
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+    assert float((want >= 0).float().mean()) > 0.9
+    depths = card.depths(rays_o, rays_d, tol)
+    numpy_depths = scene.get_slice_scan(res, rays_o, rays_d, tol,
+                                        rays_o_in_world_coord=False)[1]
+    assert np.array_equal(depths, numpy_depths, equal_nan=True)
+
+
+def _card_evaluator(cuda_device):
+    from virus_nerf_tpu_torch.configs.config import Config
+    from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+    from virus_nerf_tpu_torch.training.trainer import Trainer
+
+    ds, scene, info = make_synthetic_dataset(
+        device=cuda_device, n_images=6, img_wh=(32, 24), n_gt_points=200_000)
+    cfg = Config()
+    m, t, ev = cfg.model, cfg.training, cfg.evaluation
+    m.hash_levels, m.hash_log2_T, m.hash_max_res, m.grid_size = 4, 12, 64, 32
+    t.batch_size, t.max_samples_per_ray = 128, 32
+    t.march_candidates = t.march_resolution = 256
+    ev.res_angular, ev.res_map, ev.height_tolerance = 256, 512, 0.1
+    ev.batch_size, ev.max_samples_per_ray = 512, 32
+    tr = Trainer(cfg, ds, scene=scene, device=cuda_device)
+    state = tr.init_state(0)
+    tr.run_steps(state, 8)
+    return Evaluator(cfg, ds, scene, img_wh=info["img_wh"],
+                     device=cuda_device), state
+
+
+@pytest.mark.cuda
+def test_evaluate_depth_on_card_scans_as_the_numpy_path(cuda_device,
+                                                         monkeypatch):
+    from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays
+    from virus_nerf_tpu_torch.ops import slice_scan as slice_scan_cache
+
+    evaluator, state = _card_evaluator(cuda_device)
+    cfg, scene = evaluator.cfg, evaluator.scene
+    ev = cfg.evaluation
+    idxs = np.array([0, 2, 3, 5])
+    renders = []
+    render = evaluator.render_batched
+
+    def render_once(*args, **kwargs):  # one render for both paths
+        if not renders:
+            renders.append(render(*args, **kwargs))
+        return renders[0]
+
+    monkeypatch.setattr(evaluator, "render_batched", render_once)
+    got = evaluator.evaluate_depth(state.model, state.grid.occ_bool, idxs,
+                                   sensors=("NeRF",))
+    assert list(slice_scan_cache._SCANS[scene]) == [(ev.res_map,
+                                                     evaluator.device)]
+
+    def numpy_gt(img_idxs):
+        rays_o, rays_d = create_scan_rays(evaluator._scan_origins(img_idxs),
+                                          ev.res_angular)
+        depths = scene.get_slice_scan(res=ev.res_map, rays_o=rays_o,
+                                      rays_d=rays_d,
+                                      height_tolerance=ev.height_tolerance,
+                                      rays_o_in_world_coord=False)[1]
+        return (scene.c2w(rays_o), rays_d,
+                scene.c2w(depths, only_scale=True))
+
+    monkeypatch.setattr(evaluator, "_get_gt_data", numpy_gt)
+    want = evaluator.evaluate_depth(state.model, state.grid.occ_bool, idxs,
+                                    sensors=("NeRF",))
+    assert np.isfinite(want[1]["GT"]["depths"]).mean() > 0.5
+    for a, b in ((got[0], want[0]), (got[1], want[1])):
+        assert set(a) == set(b)
+        for sensor in a:
+            assert set(a[sensor]) == set(b[sensor])
+            for key in a[sensor]:
+                x, y = a[sensor][key], b[sensor][key]
+                if isinstance(x, dict):
+                    assert x.keys() == y.keys()
+                    x, y = list(x.values()), list(y.values())
+                assert np.array_equal(np.asarray(x), np.asarray(y),
+                                      equal_nan=True), (sensor, key)
+
+
+@pytest.mark.cuda
+def test_slice_scan_launches_once_a_call(cuda_device):
+    from virus_nerf_tpu_torch.ops.launch_counts import launches, reset
+    from virus_nerf_tpu_torch.ops.slice_scan import slice_scan
+    from virus_nerf_tpu_torch.utils import tracing
+
+    evaluator, state = _card_evaluator(cuda_device)
+    reset([slice_scan])
+    tracing.enable()
+    tracing.reset()
+    try:
+        for idxs in ([0, 1], [2, 4, 5], [3]):
+            evaluator.evaluate_depth(state.model, state.grid.occ_bool,
+                                     np.array(idxs), sensors=("NeRF",))
+        snap = tracing.snapshot()
+    finally:
+        tracing.enable(False)
+        tracing.reset()
+    assert launches(slice_scan) == 3
+    assert snap["count.evaluator.gt_scan_device"] == 3
+    assert snap["span.evaluator.gt_scan.n"] == 3

@@ -11,8 +11,10 @@ nearest-neighbour distances in three directions per sensor:
 - ``nn_inv_360``   full 360-degree GT -> prediction (total coverage).
 
 The NeRF renders run on the card in fixed-size chunks (the last one padded)
-with zero march noise under ``torch.no_grad()``; everything after the
-render is the JAX package's numpy code, on the host.  Where the JAX methods
+with zero march noise under ``torch.no_grad()``.  The GT scan's ray walk
+is ``ops/slice_scan.py``'s, bit for bit ``Scene.get_slice_scan``: on the
+card the kernel E1, on the CPU its plain version.  The rest is the JAX
+package's numpy code, on the host.  Where the JAX methods
 take the parameters (``params``), these take the model that holds them.
 ``evaluate(save_dir=...)`` writes ``metrics.csv`` and the colour renders
 (``renders/{rgb,rgb_gt,depth}_###.png``, with the port's PNG writer and
@@ -52,6 +54,7 @@ from virus_nerf_tpu_torch.evaluation.geometry import (
 )
 from virus_nerf_tpu_torch.models.ngp import NGPModel
 from virus_nerf_tpu_torch.models.renderer import render_rays
+from virus_nerf_tpu_torch.ops.slice_scan import scene_slice_scan
 from virus_nerf_tpu_torch.utils import tracing
 from virus_nerf_tpu_torch.utils.deployment import density_in_chunks
 from virus_nerf_tpu_torch.utils.helpers import require_matplotlib, turbo
@@ -304,14 +307,13 @@ class Evaluator:
     @tracing.spanned("evaluator.gt_scan")
     def _get_gt_data(self, img_idxs: np.ndarray):
         """GT 360-degree scan by ray-casting the GT slice raster
-        (reference: training/trainer.py:534-571)."""
+        (reference: training/trainer.py:534-571), the rays walked on the
+        evaluator's device (``ops/slice_scan.py``)."""
         ev = self.cfg.evaluation
         rays_o, rays_d = create_scan_rays(self._scan_origins(img_idxs),
                                           ev.res_angular)
-        _, depths_c, _ = self.scene.get_slice_scan(
-            res=ev.res_map, rays_o=rays_o, rays_d=rays_d,
-            height_tolerance=ev.height_tolerance, rays_o_in_world_coord=False,
-        )
+        depths_c = scene_slice_scan(self.scene, ev.res_map, self.device).depths(
+            rays_o, rays_d, ev.height_tolerance)
         return (self.scene.c2w(rays_o), rays_d,
                 self.scene.c2w(depths_c, only_scale=True))
 

@@ -46,6 +46,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # C signature of every entry point: name -> argtypes (all return int)
 _SIGNATURES = {
@@ -84,6 +85,9 @@ _SIGNATURES = {
     "vn_march_lattice": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
     # buf, slots, phase, stream
     "vn_trace_stamp": (_P, _I, _I, _P),
+    # cells, count, bits, words, rays, radii, m, res, cube_min, span, hit, n,
+    # stream
+    "vn_slice_scan": (_P, _I, _P, _I, _P, _P, _I, _I, _D, _D, _P, _I, _P),
 }
 
 

@@ -41,11 +41,12 @@ order they end):
 - spans ``evaluator.call``, ``evaluator.gt_scan``, ``evaluator.render``
   and ``evaluator.nnd``.
 
-The counters ``trainer.captures`` and ``trainer.replays`` are not counted
-here: :func:`snapshot` reads them from the graph records that
-``ops/launch_counts.py`` keeps (the records added and the replays made
-since :func:`reset`; a ``launch_counts.reset`` after :func:`reset` zeroes
-the replays under it).
+The counters ``trainer.captures``, ``trainer.replays`` and
+``evaluator.gt_scan_device`` (the GT scans made on the card by E1) are not
+counted here: :func:`snapshot` reads them from the graph records that
+``ops/launch_counts.py`` keeps and from E1's ``slice_scan.launches`` (what
+was added and replayed since :func:`reset`; a ``launch_counts.reset``
+after :func:`reset` zeroes what lies under it, so reset the counts first).
 
 The state is the process's, as a profiler's is: a caller enables it before
 the set-up whose graphs should hold the stamps (the trainer keys its graphs
@@ -64,6 +65,7 @@ import torch
 from torch.profiler import record_function
 
 from virus_nerf_tpu_torch.ops.launch_counts import GraphLaunches
+from virus_nerf_tpu_torch.ops.slice_scan import slice_scan
 from virus_nerf_tpu_torch.ops.trace_stamp import stamp_buffer, trace_stamp
 
 PHASES = ("sample", "march", "forward", "loss", "backward", "adam", "stats",
@@ -77,6 +79,7 @@ _spans: Dict[str, List[int]] = {}  # name -> [ns, calls]
 _counts: Dict[str, float] = {}
 _clocks: Dict[torch.device, torch.Tensor] = {}  # device -> stamp buffer
 _graphs_at_reset = (0, 0)  # graph records and their replays at reset
+_gt_scans_at_reset = 0  # E1's launches at reset
 
 
 def enable(on: bool = True) -> None:
@@ -172,8 +175,9 @@ def reset() -> None:
     """Zero every span, counter and phase sum and start the phase clocks
     now (on the card: a fill and one stamp on the current stream).  Not
     inside a CUDA graph capture."""
-    global _graphs_at_reset
+    global _graphs_at_reset, _gt_scans_at_reset
     _graphs_at_reset = _graphs()
+    _gt_scans_at_reset = slice_scan.launches
     _spans.clear()
     _counts.clear()
     for buf in _clocks.values():
@@ -205,4 +209,7 @@ def snapshot() -> Dict[str, float]:
     if captures or replays:
         out["count.trainer.captures"] = captures
         out["count.trainer.replays"] = replays
+    gt_scans = slice_scan.launches - _gt_scans_at_reset
+    if gt_scans:
+        out["count.evaluator.gt_scan_device"] = gt_scans
     return out
