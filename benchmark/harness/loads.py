@@ -7,9 +7,9 @@ A kind module has:
 
 - ``run(ctx)``: set-up from ``--seed`` through the program's normal entry
   points, then the window (``ctx.seconds``, or with ``--trace 1`` a fixed
-  stretch under the profiler, ``trace.traced_window``); it sets
-  ``setup_s``, ``attempted``, ``failed``, the end-to-end metrics
-  (``ctx.e2e``), the counters and spans, and what its check reads
+  stretch under the profiler, ``trace.traced_window``, the port's tracer
+  on from the set-up); it sets ``setup_s``, ``attempted``, ``failed``, the
+  end-to-end metrics (``ctx.e2e``), the counters, and what its check reads
   (``ctx.record``);
 - ``check(ctx)``: the numbers compared with the plain reference, run once
   the window has closed and the peak memory has been read;
@@ -25,7 +25,7 @@ A kind module has:
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict
 
 import torch
 
@@ -35,8 +35,8 @@ from benchmark.harness.rooms import room_dir
 
 class Ctx:
     """What a run hands on: the configuration's file (``conf``), the
-    traffic mix, the seed, the timings, counters, spans, the trace, and
-    the records the check reads."""
+    traffic mix, the seed, the timings, counters, the trace, and the
+    records the check reads."""
 
     def __init__(self, cell: str, conf: dict, traffic: dict, seed: int,
                  seconds: float, trace: bool, device, t_start: float):
@@ -51,7 +51,6 @@ class Ctx:
         self.failed = 0
         self.e2e: Dict[str, float] = {}
         self.counters: Dict[str, float] = {}
-        self.spans: Dict[str, List[float]] = {}
         self.traces: list = []
         self.record: dict = {}
 
@@ -89,4 +88,13 @@ def datasets(cfg, device, test: bool):
 
 
 def run_load(ctx: Ctx) -> None:
-    ctx.kind.run(ctx)
+    """The kind's ``run``; with ``--trace 1`` the port's tracer is on for
+    it, from the set-up (so the captured graphs hold its stamps), and off
+    afterwards; with ``--trace 0`` it stays off."""
+    from virus_nerf_tpu_torch.utils import tracing
+
+    tracing.enable(ctx.trace)
+    try:
+        ctx.kind.run(ctx)
+    finally:
+        tracing.enable(False)

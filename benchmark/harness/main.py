@@ -42,13 +42,13 @@ def _parse(argv):
 
 class MetricCtx:
     """What a per-layer metric's reader sees: the traced window
-    (``trace``), the run's counters and spans, the configuration
-    (``cfg``, its file's ``config``) and the roofline module."""
+    (``trace``), the run's counters (the port's tracer's among them), the
+    configuration (``cfg``, its file's ``config``) and the roofline
+    module."""
 
     def __init__(self, ctx: Ctx):
         self.trace = ctx.traced
         self.counters = ctx.counters
-        self.spans = ctx.spans
         self.cfg = ctx.cfg
         self.roofline = roofline
 

@@ -24,7 +24,7 @@ times that.
 
 from __future__ import annotations
 
-from benchmark.reference.model import HashGridSpec
+from benchmark.reference.encoders.hash_additive import HashGridSpec
 
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12

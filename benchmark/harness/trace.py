@@ -9,7 +9,12 @@ per-layer metrics and the ``breakdown`` read.
 - ``launches``: the host's launch calls (kernel launches and graph
   launches) inside the window;
 - ``gaps``: the device's idle gaps, each named by the innermost host
-  operation or harness annotation that spans its middle.
+  operation or program span that spans its middle.
+
+The window also reads the port's tracer (``utils/tracing.py``, on from
+the set-up of a ``--trace 1`` run): its phase sums, spans and counters
+since a reset made just before the window opens land in the run's
+counters, where the per-layer metrics read them.
 
 The arithmetic follows ``tools/torch_profile_step.py`` (time by kernel
 name from the profiler's device events), kept here so that the yardstick
@@ -22,13 +27,13 @@ import contextlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
-import torch
-
 WINDOW = "bench.window"
-# the harness's own annotations: the profiler also shows each as a range on
-# the device's timeline, which is no device work
-# (``annotate`` adds each name it is given)
-ANNOTATIONS = {WINDOW}
+# the harness's window and the program's spans (``utils/tracing.py``): the
+# profiler also shows each as a range on the device's timeline, which is no
+# device work
+ANNOTATIONS = frozenset({
+    WINDOW, "trainer.chunk", "trainer.piece", "trainer.warm", "trainer.capture",
+    "evaluator.call", "evaluator.render", "evaluator.gt_scan", "evaluator.nnd"})
 # the profiler's own bookkeeping on the host, which names no host work
 PROFILER_EVENTS = {"Activity Buffer Request", "Command Buffer Full", "Buffer Flush"}
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -130,24 +135,23 @@ def reduce_events(events) -> TraceResult:
 
 
 @contextlib.contextmanager
-def traced_window(out: list):
+def traced_window(ctx):
     """Profile the ``with`` body as the traced window; appends its
-    :class:`TraceResult` to ``out`` on exit.  The body must end with the
-    device's work done (a sync)."""
+    :class:`TraceResult` to ``ctx.traces`` and the port's tracer's
+    readings over it to ``ctx.counters``.  The tracer is reset once the
+    profiler runs and the device has done its work, just before the
+    window opens: the reset's fill and stamp lie outside the window, and
+    the profiler's start outside the phases.  The window closes after a
+    device sync."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from virus_nerf_tpu_torch.utils import tracing
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tracing.reset()
+        ctx.sync()
         with record_function(WINDOW):
             yield
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
-    out.append(reduce_events(prof.profiler.kineto_results.events()))
-
-
-def annotate(name: str):
-    """A harness annotation (a host range in the trace; it names the idle
-    gaps that fall inside it)."""
-    from torch.profiler import record_function
-
-    ANNOTATIONS.add(name)
-    return record_function(name)
+            ctx.sync()
+    ctx.counters.update(tracing.snapshot())
+    ctx.traces.append(reduce_events(prof.profiler.kineto_results.events()))

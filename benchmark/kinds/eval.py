@@ -6,8 +6,9 @@ calls back to back, each of ``images`` test images drawn with replacement
 by a generator seeded from ``--seed``, NeRF scans only: the mid-training
 evaluation's request.  ``attempted`` counts calls; a call that raises or
 returns a non-finite zone-3 NND failed.  With ``--trace 1`` the window is
-``trace_calls`` calls under the profiler, with harness spans around the
-render, the GT scans and the NND metrics.
+``trace_calls`` calls under the profiler, the port's tracer on and read
+over the window (``harness/trace.py``): its spans ``evaluator.call``,
+``evaluator.render``, ``evaluator.gt_scan`` and ``evaluator.nnd``.
 
 The check: no reference can follow the program's training steps to the
 same map (float chaos and the march's discrete choices), so the reference
@@ -37,22 +38,9 @@ import numpy as np
 import torch
 
 from benchmark.harness import checks, loads
-from benchmark.harness.trace import annotate, traced_window
+from benchmark.harness.trace import traced_window
 
 NUMBERS = ("depth_gap_m", "nnd_gap")
-
-
-def _spanned(fn, name: str, spans: list):
-    """``fn`` in a harness span: its host seconds appended to ``spans``, an
-    annotation of the trace around it."""
-    def wrapped(*a, **k):
-        t = time.perf_counter()
-        with annotate(name):
-            out = fn(*a, **k)
-        spans.append(time.perf_counter() - t)
-        return out
-
-    return wrapped
 
 
 def _answer(metrics, data) -> Tuple[float, np.ndarray]:
@@ -85,26 +73,13 @@ def run(ctx) -> None:
     ctx.sync()
     ctx.setup_s = time.perf_counter() - ctx.t_start
 
-    if ctx.trace:
-        # spans of the call's layers: the render (its copies in and out
-        # included), the GT scans and the NND metrics on the host
-        from virus_nerf_tpu_torch.evaluation import evaluator as ev_mod
-
-        evaluator.render_batched = _spanned(evaluator.render_batched, "eval.render",
-                                            ctx.spans.setdefault("render_s", []))
-        evaluator._get_gt_data = _spanned(evaluator._get_gt_data, "eval.gt_scan",
-                                          ctx.spans.setdefault("gt_scan_s", []))
-        nn_metrics = ev_mod.M.nn_metrics
-        ev_mod.M.nn_metrics = _spanned(nn_metrics, "eval.nnd",
-                                       ctx.spans.setdefault("nnd_s", []))
     calls, times = [], []
 
     def one():
         idxs = rng.choice(test_ds.n_images, size=n_img, replace=True)
         t = time.perf_counter()
         try:
-            with annotate("eval.call"):
-                nnd, depths = call(idxs)
+            nnd, depths = call(idxs)
         except Exception as exc:  # a failed call counts, the run goes on
             nnd, depths = math.nan, None
             print(f"eval call failed: {exc!r}", file=sys.stderr, flush=True)
@@ -112,12 +87,9 @@ def run(ctx) -> None:
         calls.append((idxs, nnd, depths))
 
     if ctx.trace:
-        with traced_window(ctx.traces):
+        with traced_window(ctx):
             for _ in range(tr["trace_calls"]):
                 one()
-        ev_mod.M.nn_metrics = nn_metrics
-        del evaluator.render_batched, evaluator._get_gt_data
-        ctx.counters.update({k: sum(v) for k, v in ctx.spans.items()})
     else:
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < ctx.seconds:
@@ -168,7 +140,7 @@ def numbers(got, want) -> Dict[str, float]:
 
 def reference_map(ctx) -> dict:
     """The reference's own map (``run_steps`` from the seed: its
-    ``PlainNGP`` and VIRUS grid after ``train_steps`` steps), made once a
+    ``PlainNGP`` and grid after ``train_steps`` steps), made once a
     run."""
     if "ref" not in ctx.record:
         from benchmark.reference.train import run_steps

@@ -9,7 +9,9 @@ so the reference follows eager steps and graph replays alike.  The window
 runs chunks back to back, grid updates included, to the first chunk end
 after ``--seconds``, closed by a device sync.  ``attempted`` counts steps;
 a step whose loss is not finite failed.  With ``--trace 1`` the window is
-``trace_chunks`` chunks under the profiler.
+``trace_chunks`` chunks under the profiler, the port's tracer on from the
+set-up (its phase stamps in every captured graph) and read over the
+window (``harness/trace.py``).
 
 The check: the reference (``reference/train.py``) builds the weights, the
 grid and the draws from the same seed and follows the whole first chunk.
@@ -24,8 +26,10 @@ grid and the draws from the same seed and follows the whole first chunk.
   whole chunk, replays included, leaving out the leaves whose reference
   gradient is under a thousandth of the median leaf's (they move by
   round-off);
-- ``grid_gap``: the largest difference of the VIRUS grid's probabilities
-  after the first update.
+- ``grid_gap``: the largest difference of the grid's values after the
+  first update (the VIRUS grid's probabilities), the program's read by
+  ``program_values`` of the grid's reference part
+  (``reference/grids/<grid_type>.py``).
 
 The losses and the grid are compared at the chunk's start because later
 in the chunk they part by chaos on some seeds: the loss takes discrete
@@ -45,19 +49,20 @@ import numpy as np
 import torch
 
 from benchmark.harness import checks, loads
-from benchmark.harness.trace import annotate, traced_window
+from benchmark.harness.trace import traced_window
+from benchmark.reference import parts
 
 ADAM_B1 = 0.9
 NUMBERS = ("loss_gap", "grad_gap", "change_gap", "grid_gap")
 
 
 class FirstStep:
-    """The optimizer's post-step hook: the first moments and the grid after
-    the first step (an eager step: the hook never fires in a capture or a
-    replay)."""
+    """The optimizer's post-step hook: the first moments and the grid's
+    values (``values(state.grid)``) after the first step (an eager step:
+    the hook never fires in a capture or a replay)."""
 
-    def __init__(self, state):
-        self.state, self.m1, self.grid1 = state, None, None
+    def __init__(self, state, values):
+        self.state, self.values, self.m1, self.grid1 = state, values, None, None
         self.handle = state.optimizer.register_step_post_hook(self._hook)
 
     def _hook(self, opt, args, kwargs):
@@ -66,7 +71,7 @@ class FirstStep:
         if int(opt.count) == 1:
             self.m1 = [opt._moments(p)[0].clone()
                        for p in self.state.model.parameters()]
-            self.grid1 = self.state.grid.occ_3d_grid.clone()
+            self.grid1 = self.values(self.state.grid).clone()
 
 
 def run(ctx) -> None:
@@ -78,14 +83,15 @@ def run(ctx) -> None:
     trainer = Trainer(cfg, ds, scene=scene, device=ctx.device)
     state = trainer.init_state(ctx.seed)
     params0 = [p.detach().clone() for p in state.model.parameters()]
-    first = FirstStep(state)
+    values = parts.grid(cfg.model.grid_type).program_values
+    first = FirstStep(state, values)
     chunk = trainer.make_train_chunk(tr["chunk_steps"])
     _, keys, m = chunk(state)
     first.handle.remove()
     ctx.record.update(
         params0=params0, m1=first.m1, grid1=first.grid1,
         params=[p.detach().clone() for p in state.model.parameters()],
-        grid=state.grid.occ_3d_grid.clone(), occ=state.grid.occ_bool.clone(),
+        grid=values(state.grid).clone(), occ=state.grid.occ_bool.clone(),
         losses=m[:, keys.index("loss")].tolist())
     while state.step < tr["warmup_steps"]:
         chunk(state)
@@ -95,10 +101,9 @@ def run(ctx) -> None:
     rows = []
     steps0 = state.step
     if ctx.trace:
-        with traced_window(ctx.traces):
+        with traced_window(ctx):
             for _ in range(tr["trace_chunks"]):
-                with annotate("train.chunk"):
-                    rows.append(chunk(state)[2])
+                rows.append(chunk(state)[2])
     else:
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < ctx.seconds:
@@ -162,7 +167,7 @@ def check(ctx) -> Dict[str, float]:
     rec["detail"] = {
         "loss_steps": loss_gaps(rec, ref),
         "chunk_grid_gap": float((rec["grid"].float()
-                                 - ref["grid"].occ_3d_grid.float()).abs().max()),
+                                 - ref["grid"].values().float()).abs().max()),
         "occ_flips": int((rec["occ"] != ref["grid"].occ_bool).sum())}
     return numbers(rec, ref, ctx.traffic["check_steps"])
 

@@ -1,13 +1,12 @@
 """The reference's training steps, in plain PyTorch.
 
-From one seed and the loaded room it builds the weights, the VIRUS grid
-and the random stream as the program does (one ``torch.Generator`` on the
-device, the same draws in the same order: the table, the MLP layers, the
-grid's initial probabilities, then each grid update's two batches and its
-position noise, each step's batch and march jitter), and runs steps:
+From one seed and the loaded room it builds the weights, the grid and the
+random stream as the program does (one ``torch.Generator`` on the device,
+the same draws in the same order: the encoder's leaves, the MLP layers,
+the grid's initial state, then each grid update's own draws, each step's
+batch and march jitter), and runs steps:
 
-- the grid update before every step whose index is a multiple of
-  ``occ_grid.update_interval``;
+- the grid update before every step where one is due;
 - the batch (``dataset.sample_batch``), the march (``march.py``: the
   constant-dt closed form or the exponential lattice, the occupancy probe
   and the slot selection), the compaction to the sample budget where the
@@ -16,6 +15,8 @@ position noise, each step's batch and march jitter), and runs steps:
 - the colour, ToF and USS losses (``loss.py``), the gradient by autograd,
   and Adam (``optax.adam`` with eps 1e-15: the bias-corrected update).
 
+The encoder and the grid are the configuration's, found by name
+(``parts.py``: ``encoders/<name>.py``, ``grids/<grid_type>.py``).
 Everything the trainer derives from the configuration and the scene (the
 metric-to-cube conversions of the loss and the grid, the batch sizes and
 sensors of the grid update, the budget) is worked out here again.
@@ -27,14 +28,10 @@ from typing import Dict, List, Optional
 
 import torch
 
+from benchmark.reference import parts
 from benchmark.reference.dataset import sample_batch
 from benchmark.reference.loss import LossWeights, compute_loss
 from benchmark.reference.model import PlainNGP
-from benchmark.reference.occupancy_grid import (
-    OccGridHParams,
-    occ_grid_init,
-    occ_grid_update,
-)
 from benchmark.reference.renderer import render_rays
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-15
@@ -43,8 +40,8 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-15
 class StepsRecord(dict):
     """``losses`` (each step's), ``params0`` and ``params`` (the leaves
     before the first step and after the last), ``grads1`` (the first
-    step's gradient), ``grid1`` (the probabilities after the first grid
-    update), ``grid`` (the VIRUS grid's state after the last update),
+    step's gradient), ``grid1`` (the grid's ``values()`` after the first
+    update), ``grid`` (the grid part, ``parts.grid``, after the last),
     ``names`` (the leaves' names) and ``model`` (the ``PlainNGP`` as the
     last step left it)."""
 
@@ -58,25 +55,10 @@ def _sample_budget(cfg) -> Optional[int]:
     return budget if budget > 0 else None
 
 
-def _grid_sensors(sensors):
-    if "RGBD" in sensors:
-        return ("random", "RGBD"), ("random", "RGBD")
-    if "ToF" in sensors and "USS" in sensors:
-        return ("valid_tof", "ToF"), ("valid_uss", "USS")
-    if "ToF" in sensors:
-        return ("valid_tof", "ToF"), ("valid_tof", "ToF")
-    if "USS" in sensors:
-        return ("valid_uss", "USS"), ("valid_uss", "USS")
-    raise ValueError("the grid update needs a depth sensor")
-
-
 def run_steps(cfg, dataset, scene, seed: int, n_steps: int,
               tf32: bool = False) -> StepsRecord:
     """``n_steps`` steps from ``seed``; ``tf32`` lets the matrix products
     round their inputs to TF32 (the control)."""
-    if cfg.model.grid_type != "occ" or cfg.model.encoder_type != "hash" \
-            or cfg.model.hash_variant != "additive":
-        raise ValueError("the reference covers the VIRUS grid and the additive hash")
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
     try:
@@ -87,49 +69,27 @@ def run_steps(cfg, dataset, scene, seed: int, n_steps: int,
 
 def _run_steps(cfg, dataset, scene, seed: int, n_steps: int) -> StepsRecord:
     dev = dataset.device
-    t, og, m = cfg.training, cfg.occ_grid, cfg.model
+    t = cfg.training
     w2c = float(scene.w2c(1.0, only_scale=True))
     weights = LossWeights(color=t.color_loss_w, rgbd=t.rgbd_loss_w,
                           tof=t.tof_loss_w, uss=t.uss_loss_w,
                           uss_depth_tol=float(0.03 * w2c), distortion=0.0)
-    hp = OccGridHParams(
-        grid_size=m.grid_size, scale=m.scale,
-        false_detection_prob_every_m=float(og.false_detection_prob_every_m / w2c),
-        std_every_m=float(og.std_every_m * w2c),
-        nerf_pos_noise_every_m=float(og.nerf_pos_noise_every_m * w2c),
-        nerf_threshold_max=og.nerf_threshold_max,
-        nerf_threshold_slope=og.nerf_threshold_slope,
-        decay_warmup_steps=og.decay_warmup_steps,
-        update_interval=og.update_interval,
-    )
-    b_ray = max(1, int(og.batch_size * og.batch_ratio_ray_update))
-    b_nerf = max(1, og.batch_size - int(og.batch_size * og.batch_ratio_ray_update))
-    ray_sel, nerf_sel = _grid_sensors(t.sensors)
+    grid_part = parts.grid(cfg.model.grid_type)
     budget = _sample_budget(cfg)
 
     g = torch.Generator(device=dev)
     g.manual_seed(int(seed))
     model = PlainNGP(cfg, g, dev)
-    grid = occ_grid_init(hp, generator=g, device=dev)
+    grid = grid_part.Grid(cfg, dataset, scene, g)
     mu = [torch.zeros_like(p) for p in model.params]
     nu = [torch.zeros_like(p) for p in model.params]
     rec = StepsRecord(names=list(model.names), losses=[],
                       params0=[p.detach().clone() for p in model.params])
     for step in range(n_steps):
-        if step % og.update_interval == 0:
-            ray_b = sample_batch(dataset, g, b_ray, {"imgs": "all", "pixs": ray_sel[0]})
-            nerf_b = sample_batch(dataset, g, b_nerf, {"imgs": "all", "pixs": nerf_sel[0]})
-            noise = torch.rand((b_nerf, hp.M, 3), generator=g, device=dev) * 2.0 - 1.0
-            with torch.no_grad():
-                grid = occ_grid_update(
-                    grid, hp, model.density,
-                    ray_batch={"rays_o": ray_b.rays_o, "rays_d": ray_b.rays_d,
-                               "meas": ray_b.depths[ray_sel[1]]},
-                    nerf_batch={"rays_o": nerf_b.rays_o, "rays_d": nerf_b.rays_d,
-                                "meas": nerf_b.depths[nerf_sel[1]]},
-                    nerf_noise=noise)
+        if grid.due(step):
+            grid.update(model.density, step)
             if "grid1" not in rec:
-                rec["grid1"] = grid.occ_3d_grid.clone()
+                rec["grid1"] = grid.values().clone()
         batch = sample_batch(dataset, g, t.batch_size, t.sampling_strategy)
         noise = torch.rand((t.batch_size,), generator=g, device=dev)
         results = render_rays(

@@ -22,15 +22,33 @@ def _run(cell, trace=False, seed=SEED):
                     manifest=man, conf=conf, traffic=traffic)
 
 
+TRACER_METRICS = {
+    "ethz.train": ["march_ms_per_step.train", "forward_ms_per_step.train",
+                   "backward_ms_per_step.train", "grid_update_ms_per_step.train"],
+    "ethz.eval": ["render_ms_per_call.eval", "gt_scan_ms_per_call.eval",
+                  "nnd_ms_per_call.eval"],
+}
+
+
 @pytest.mark.parametrize("cell,trace", [("ethz.train", False), ("rh2.train", False),
-                                        ("ethz.eval", False), ("ethz.train", True)])
+                                        ("ethz.eval", False), ("ethz.train", True),
+                                        ("ethz.eval", True)])
 def test_sound_runs_are_correct(cell, trace):
+    """Also: the port's tracer is on for a traced run alone, its readers
+    report there, and it is off once the run is done."""
+    from virus_nerf_tpu_torch.utils import tracing
+
     res = _run(cell, trace)
     assert res["correct"], res["checks"]
     assert res["attempted"] > 0 and res["failed"] == 0
     assert list(res)[-1] == "checks"
-    if not trace:
+    assert not tracing.enabled()
+    if trace:
+        for name in TRACER_METRICS[cell]:
+            assert res["metrics"][name]["value"] > 0, name
+    else:
         assert "setup_s" in res["metrics"]
+        assert not [k for k in res["counters"] if k.startswith(("phase.", "span."))]
 
 
 @pytest.mark.parametrize("cell", ["ethz.train", "rh2.train"])

@@ -11,8 +11,11 @@ import sys
 
 from benchmark.harness import manifest as mf
 
-REFERENCE = sorted(f[:-3] for f in os.listdir(os.path.join(mf.BENCH_DIR, "reference"))
-                   if f.endswith(".py"))
+REFERENCE = sorted(
+    os.path.relpath(os.path.join(d, f), os.path.join(mf.BENCH_DIR, "reference"))[:-3]
+    .replace(os.sep, ".")
+    for d, _, files in os.walk(os.path.join(mf.BENCH_DIR, "reference"))
+    for f in files if f.endswith(".py"))
 ROOMS = sorted(f[:-3] for f in os.listdir(os.path.join(mf.BENCH_DIR, "rooms"))
                if f.endswith(".py"))
 

@@ -130,7 +130,6 @@ def test_a_reader_that_finds_nothing_returns_nothing():
     class Empty:
         trace = None
         counters = {}
-        spans = {}
         cfg = mf.config_file(MAN, MAN["configs"][0]["name"])["config"]
         from benchmark.harness import roofline
 

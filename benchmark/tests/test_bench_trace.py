@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import pytest
 
-from benchmark.harness.trace import WINDOW, annotate, reduce_events
+from benchmark.harness.trace import WINDOW, reduce_events
 
 
 class Ev:
@@ -26,10 +26,9 @@ class Ev:
 
 
 def test_busy_idle_gaps_and_launches():
-    annotate("train.chunk")  # registers the harness's annotation
     evs = [
         Ev(WINDOW, 0, 1000, False),
-        Ev("train.chunk", 0, 1000, True),  # an annotation on the device line
+        Ev("trainer.chunk", 0, 1000, True),  # a program span on the device line
         Ev("host.work", 100, 300, False),
         Ev("cudaGraphLaunch", 10, 1, False),
         Ev("cudaLaunchKernel", 20, 1, False),
@@ -43,7 +42,7 @@ def test_busy_idle_gaps_and_launches():
     assert res.window_s == pytest.approx(1e-3)
     assert res.busy_s == pytest.approx((150 + 100 + 10) * 1e-6)
     assert res.kernel_s["kernel_a"] == pytest.approx(200e-6)
-    assert "train.chunk" not in res.kernel_s and "kernel_out" not in res.kernel_s
+    assert "trainer.chunk" not in res.kernel_s and "kernel_out" not in res.kernel_s
     assert res.launches == 2
     # longest gap first: 500..990 (outside host.work), then 150..400
     assert res.gaps[0] == ("host outside any annotation", pytest.approx(490e-6))
