@@ -10,7 +10,8 @@ A kind module has:
   stretch under the profiler, ``trace.traced_window``, the port's tracer
   on from the set-up); it sets ``setup_s``, ``attempted``, ``failed``, the
   end-to-end metrics (``ctx.e2e``), the counters, and what its check reads
-  (``ctx.record``);
+  (``ctx.record``); a kind that runs on several cards in processes of its
+  own also sets ``peak_bytes`` and, traced, ``busy_window``;
 - ``check(ctx)``: the numbers compared with the plain reference, run once
   the window has closed and the peak memory has been read;
 - ``NUMBERS``: their names (the keys of ``benchmark/checks/<cell>.json``);
@@ -53,6 +54,11 @@ class Ctx:
         self.counters: Dict[str, float] = {}
         self.traces: list = []
         self.record: dict = {}
+        # set by a kind whose ranks run in processes of their own: the
+        # largest peak over its cards, and the device's busy and window
+        # seconds averaged over them
+        self.peak_bytes = None
+        self.busy_window = None
 
     @property
     def traced(self):

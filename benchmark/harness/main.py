@@ -71,7 +71,9 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device,
     run_load(ctx)
     if ctx_out is not None:
         ctx_out.append(ctx)
-    peak = torch.cuda.max_memory_allocated(ctx.device) if ctx.device.type == "cuda" else 0
+    peak = ctx.peak_bytes
+    if peak is None:
+        peak = torch.cuda.max_memory_allocated(ctx.device) if ctx.device.type == "cuda" else 0
     if not trace:
         ctx.e2e["peak_mem_gib"] = peak / 2**30
     metrics = {}
@@ -97,8 +99,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device,
            "failed": int(ctx.failed), "metrics": metrics,
            "memory_peak_bytes": int(peak), "counters": ctx.counters}
     if trace and ctx.traced is not None:
-        out["busy_s"] = ctx.traced.busy_s
-        out["window_s"] = ctx.traced.window_s
+        out["busy_s"], out["window_s"] = ctx.busy_window or (
+            ctx.traced.busy_s, ctx.traced.window_s)
         out["breakdown"] = ctx.traced.breakdown()
     out["checks"] = checks
     return out

@@ -1,7 +1,8 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell (``workloads``) names a configuration, whose ``file`` is
-``benchmark/configs/<config>.json``, and a traffic mix,
+``benchmark/configs/<config>.json`` (the run configuration under
+``config``, the sizes its source publishes under ``published``), and a traffic mix,
 ``benchmark/traffic/<traffic>.json``: data, whose ``kind`` names the loop
 that reads it, ``benchmark/kinds/<kind>.py`` (its set-up, window, check,
 control and faults).  The cell's limits are
@@ -44,6 +45,18 @@ def config_file(manifest: dict, config: str, root: str = ROOT) -> dict:
         if c["name"] == config:
             return _read_json(os.path.join(root, c["file"]))
     raise KeyError(f"no config {config!r} in BENCHMARK.json")
+
+
+def published_departures(conf: dict) -> List[str]:
+    """The keys of a configuration file's ``published`` block (``{group:
+    {key: value}}``: the sizes its source publishes) from which the run
+    configuration departs, leaving out those that ``reduced`` names (as
+    ``key`` or ``group.key``)."""
+    reduced = set(conf["reduced"])
+    return [f"{group}.{k}" for group, keys in conf["published"].items()
+            for k, v in keys.items()
+            if k not in reduced and f"{group}.{k}" not in reduced
+            and conf["config"][group].get(k) != v]
 
 
 def traffic_file(traffic: str) -> dict:

@@ -9,13 +9,16 @@ process (the rooms loaded once):
   float32 with TF32 off (the upper reading is its smallest);
 - one entry for each fault of the cell's kind (``FAULTS`` of
   ``benchmark/kinds/<kind>.py``; training: ``half_batch``, half of each
-  batch left out of the loss), planted in the program.
+  batch left out of the loss; data-parallel training also
+  ``allreduce_dropped``), planted in the program, on every seed or on the
+  first ``--fault-seeds``.
 
     python3 -m benchmark.harness.readings --workload ethz.train \\
-        --seeds 11 12 13 [--out readings.jsonl]
+        --seeds 11 12 13 [--fault-seeds 3] [--out readings.jsonl]
 
-Each seed's readings are one JSON line.  The benchmark's own runs never
-run this.
+Each seed's readings are one JSON line.  A kind whose ranks run in
+processes of their own (``train_dp``) reads every seed in one start of its
+ranks (its ``readings``).  The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ def main(argv=None) -> int:
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--seconds", type=float, default=4.0)
+    p.add_argument("--fault-seeds", type=int, default=None)
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -79,25 +83,41 @@ def main(argv=None) -> int:
     from virus_nerf_tpu_torch.ops import _build
 
     _build.library()
-    readings(args.workload, args.seeds, args.seconds, "cuda:0", args.out)
+    readings(args.workload, args.seeds, args.seconds, "cuda:0", args.out,
+             fault_seeds=args.fault_seeds)
     return 0
 
 
+def _emit(line: dict, out) -> None:
+    print(json.dumps(line), flush=True)
+    if out:
+        out.write(json.dumps(line) + "\n")
+        out.flush()
+
+
 def readings(cell: str, seeds, seconds: float, device, out_path=None,
-             manifest=None, conf=None, traffic=None) -> list:
+             manifest=None, conf=None, traffic=None, fault_seeds=None) -> list:
     """The readings of ``seeds``, one JSON line each (printed, and
     appended to ``out_path``); ``manifest``, ``conf`` and ``traffic``
-    replace the cell's files (the tests' tiny sizes)."""
+    replace the cell's files (the tests' tiny sizes); the faults run on the
+    first ``fault_seeds`` seeds (every seed where None)."""
     man = mf.load_manifest() if manifest is None else manifest
     w = mf.workload(man, cell)
     traffic = mf.traffic_file(w["traffic"]) if traffic is None else traffic
     kind = mf.kind_module(traffic["kind"])
     traffic = kind.short(traffic)
+    n_fault = len(seeds) if fault_seeds is None else fault_seeds
     undo_cache = cache_rooms()
     out = open(out_path, "a") if out_path else None
     lines = []
     try:
-        for seed in seeds:
+        if hasattr(kind, "readings"):
+            conf = mf.config_file(man, w["config"]) if conf is None else conf
+            lines = kind.readings(cell, list(seeds), device, conf, traffic, n_fault)
+            for line in lines:
+                _emit(line, out)
+            return lines
+        for i, seed in enumerate(seeds):
             t0 = time.perf_counter()
             line = {"workload": cell, "seed": seed}
             kept = []
@@ -110,6 +130,8 @@ def readings(cell: str, seeds, seconds: float, device, out_path=None,
             if "detail" in kept[0].record:
                 line["detail"] = kept[0].record["detail"]
             for name, plant in kind.FAULTS.items():
+                if i >= n_fault:
+                    break
                 undo = plant()
                 try:
                     res = run_cell(cell, seed, 0.5, False, device, t0, manifest=man,
@@ -123,10 +145,7 @@ def readings(cell: str, seeds, seconds: float, device, out_path=None,
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
             lines.append(line)
-            print(json.dumps(line), flush=True)
-            if out:
-                out.write(json.dumps(line) + "\n")
-                out.flush()
+            _emit(line, out)
     finally:
         undo_cache()
         if out:

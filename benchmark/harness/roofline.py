@@ -19,11 +19,18 @@ arithmetic (each input read once, each output written once):
 
 The MLP operations: a sample's forward pass through the xyz and rgb
 layers is ``2 sum(d_in d_out)`` operations; forward and backward, three
-times that.
+times that.  The encoder's width (the xyz net's input) and its leaves'
+sizes come from the configuration's reference encoder
+(``reference/parts.py``: ``encoders/<name>.py``'s ``shapes``), so a new
+encoder brings its own counts.
 """
 
 from __future__ import annotations
 
+import math
+from types import SimpleNamespace
+
+from benchmark.reference import parts
 from benchmark.reference.encoders.hash_additive import HashGridSpec
 
 FP32_FLOPS = 67e12
@@ -36,9 +43,16 @@ def hash_spec(model: dict) -> HashGridSpec:
                                2 ** model["hash_log2_T"])
 
 
+def encoder_shapes(model: dict):
+    """``(out_dim, leaf shapes)`` of the model's encoder, by its reference
+    part's ``shapes``."""
+    m = SimpleNamespace(**model)
+    return parts.encoder(m).shapes(m)
+
+
 def mlp_layers(model: dict):
     """The (d_in, d_out) of every MLP layer, xyz net then rgb net."""
-    enc = model["hash_levels"] * model["hash_features_per_level"]
+    enc = encoder_shapes(model)[0]
     xyz = [enc] + [model["xyz_net_width"]] * model["xyz_net_depth"] + [model["xyz_net_out_dim"]]
     rgb = ([16 + model["xyz_net_out_dim"]] + [model["rgb_net_width"]] * model["rgb_net_depth"]
            + [3])
@@ -51,8 +65,9 @@ def mlp_forward_flops(model: dict) -> int:
 
 
 def n_params(model: dict) -> int:
-    spec = hash_spec(model)
-    return spec.total_rows * spec.feat_dim + sum(a * b for a, b in mlp_layers(model))
+    leaves = encoder_shapes(model)[1]
+    return (sum(math.prod(s) for s in leaves)
+            + sum(a * b for a, b in mlp_layers(model)))
 
 
 def model_samples_per_step(cfg: dict) -> int:

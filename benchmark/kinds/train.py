@@ -127,27 +127,47 @@ def loss_gaps(rec: dict, ref: dict) -> List[float]:
             for a, b in zip(rec["losses"], ref["losses"])]
 
 
+def grad_norms(m1) -> List[float]:
+    """The first gradient as the optimizer got it, a norm a leaf: its first
+    moments after one step over ``1 - b1``."""
+    from benchmark.reference.train import leaf_norms
+
+    return leaf_norms([m / (1.0 - ADAM_B1) for m in m1])
+
+
+def change_norms(params, params0) -> List[float]:
+    from benchmark.reference.train import leaf_norms
+
+    return leaf_norms([a - b for a, b in zip(params, params0)])
+
+
 def numbers(rec: dict, ref: dict, n_losses: int) -> Dict[str, float]:
     """The check's numbers from the program's record and the reference's
     (``reference.train.run_steps``); ``n_losses``: the first losses
     compared."""
-    from benchmark.reference.train import leaf_norms, worst_leaf_gap
-
     if rec.get("m1") is None or len(rec["losses"]) != len(ref["losses"]):
         # the program's first step never reached the optimizer
         return dict.fromkeys(NUMBERS, math.inf)
-    losses = loss_gaps(rec, ref)[:n_losses]
+    return gaps(rec["losses"], grad_norms(rec["m1"]),
+                change_norms(rec["params"], rec["params0"]), rec["grid1"], ref,
+                n_losses)
+
+
+def gaps(losses, g_prog, c_prog, grid1, ref: dict, n_losses: int) -> Dict[str, float]:
+    """The four numbers from the program's losses, norms a leaf (the first
+    gradient's, each leaf's change) and grid after the first update."""
+    from benchmark.reference.train import leaf_norms, worst_leaf_gap
+
+    losses = loss_gaps({"losses": losses}, ref)[:n_losses]
     g_ref = leaf_norms(ref["grads1"])
-    g_prog = leaf_norms([m / (1.0 - ADAM_B1) for m in rec["m1"]])
     med = sorted(g_ref)[len(g_ref) // 2]
     keep = [g >= 1e-3 * med for g in g_ref]
-    c_prog = leaf_norms([a - b for a, b in zip(rec["params"], rec["params0"])])
-    c_ref = leaf_norms([a - b for a, b in zip(ref["params"], ref["params0"])])
+    c_ref = change_norms(ref["params"], ref["params0"])
     return {
         "loss_gap": max(losses) if losses else math.inf,
         "grad_gap": worst_leaf_gap(g_prog, g_ref)["gap"],
         "change_gap": worst_leaf_gap(c_prog, c_ref, keep)["gap"],
-        "grid_gap": float((rec["grid1"].float() - ref["grid1"].float()).abs().max()),
+        "grid_gap": float((grid1.float() - ref["grid1"].float()).abs().max()),
     }
 
 

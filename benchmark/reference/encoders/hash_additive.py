@@ -125,14 +125,26 @@ def hash_encode(table, xyz, spec: HashGridSpec):
     return out.reshape(xyz.shape[0], spec.out_dim)
 
 
+def _spec(model) -> HashGridSpec:
+    return HashGridSpec.create(model.hash_levels, model.hash_features_per_level,
+                               model.hash_base_res, model.hash_max_res,
+                               2**model.hash_log2_T)
+
+
+def shapes(model):
+    """``(out_dim, leaf shapes)`` of the model's encoder, from its sizes
+    alone (no table is drawn): the roofline's count of the MLP's input
+    width and of the parameters."""
+    spec = _spec(model)
+    return spec.out_dim, [(spec.total_rows, spec.feat_dim)]
+
+
 class Encoder:
     """The encoder as ``PlainNGP`` takes it (``reference/parts.py``): its
     leaves and their program names, ``out_dim`` and ``encode``."""
 
     def __init__(self, model, generator: torch.Generator, device):
-        self.spec = HashGridSpec.create(model.hash_levels, model.hash_features_per_level,
-                                        model.hash_base_res, model.hash_max_res,
-                                        2**model.hash_log2_T)
+        self.spec = _spec(model)
         self.out_dim = self.spec.out_dim
         self.names = ["pos_table"]
         self.leaves = [torch.rand((self.spec.total_rows, self.spec.feat_dim),

@@ -4,7 +4,9 @@ steps from a batch of depth-sensor rays and a batch of NeRF rays.
 
 Its draws, from the run's one generator: the initial probabilities (after
 the model's leaves), then at each update the ray batch, the NeRF batch and
-the NeRF cells' position noise, in that order.  The metric-to-cube
+the NeRF cells' position noise, in that order; under data parallelism
+(``update_shards``) each rank draws its shard of them from its own
+generator.  The metric-to-cube
 conversions, the batch sizes and the sensors of an update are worked out
 from the configuration and the scene, as the trainer does.
 """
@@ -16,6 +18,11 @@ import torch
 from benchmark.reference.dataset import sample_batch
 from benchmark.reference.occupancy_grid import (
     OccGridHParams,
+    _cell_positions,
+    _evidence_add_,
+    nerf_density_probs,
+    occ_grid_apply_delta,
+    occ_grid_delta,
     occ_grid_init,
     occ_grid_update,
 )
@@ -51,6 +58,8 @@ class Grid:
         )
         self.b_ray = max(1, int(og.batch_size * og.batch_ratio_ray_update))
         self.b_nerf = max(1, og.batch_size - int(og.batch_size * og.batch_ratio_ray_update))
+        self.b_all = (int(og.batch_size * og.batch_ratio_ray_update),
+                      og.batch_size - int(og.batch_size * og.batch_ratio_ray_update))
         self.ray_sel, self.nerf_sel = _grid_sensors(cfg.training.sensors)
         self.dataset, self.generator = dataset, generator
         self.state = occ_grid_init(self.hp, generator=generator, device=dataset.device)
@@ -58,13 +67,18 @@ class Grid:
     def due(self, step: int) -> bool:
         return step % self.hp.update_interval == 0
 
+    def _draw(self, g, b_ray: int, b_nerf: int):
+        ds = self.dataset
+        ray_b = sample_batch(ds, g, b_ray, {"imgs": "all", "pixs": self.ray_sel[0]})
+        nerf_b = sample_batch(ds, g, b_nerf, {"imgs": "all", "pixs": self.nerf_sel[0]})
+        noise = torch.rand((b_nerf, self.hp.M, 3), generator=g, device=ds.device) * 2.0 - 1.0
+        return ray_b, nerf_b, noise
+
     def update(self, density, step: int) -> None:
         """One update: its two batches and its noise drawn, the evidence of
         ``density`` (the model's, without gradient) applied."""
-        ds, g, hp = self.dataset, self.generator, self.hp
-        ray_b = sample_batch(ds, g, self.b_ray, {"imgs": "all", "pixs": self.ray_sel[0]})
-        nerf_b = sample_batch(ds, g, self.b_nerf, {"imgs": "all", "pixs": self.nerf_sel[0]})
-        noise = torch.rand((self.b_nerf, hp.M, 3), generator=g, device=ds.device) * 2.0 - 1.0
+        hp = self.hp
+        ray_b, nerf_b, noise = self._draw(self.generator, self.b_ray, self.b_nerf)
         with torch.no_grad():
             self.state = occ_grid_update(
                 self.state, hp, density,
@@ -73,6 +87,35 @@ class Grid:
                 nerf_batch={"rays_o": nerf_b.rays_o, "rays_d": nerf_b.rays_d,
                             "meas": nerf_b.depths[self.nerf_sel[1]]},
                 nerf_noise=noise)
+
+    def update_shards(self, density, step: int, generators) -> None:
+        """One data-parallel update over ``len(generators)`` virtual ranks:
+        each draws its shard of the two batches and its noise from its own
+        generator, the NeRF threshold's mean density is the mean of the
+        ranks' means, each rank's evidence is summed in rank order, and the
+        sum is applied once."""
+        hp, world = self.hp, len(generators)
+        b_ray, b_nerf = (max(1, b // world) for b in self.b_all)
+        shards = [self._draw(g, b_ray, b_nerf) for g in generators]
+        with torch.no_grad():
+            nerf = []
+            for _, nerf_b, noise in shards:
+                _, pos, idxs = _cell_positions(nerf_b.rays_o, nerf_b.rays_d, hp,
+                                               noise=noise)
+                nerf.append((idxs, density(pos.reshape(-1, 3))))
+            mean_density = sum(d.mean() for _, d in nerf) / world
+            total = None
+            for (ray_b, nerf_b, _), (idxs, dens) in zip(shards, nerf):
+                delta = occ_grid_delta(hp, density, ray_batch={
+                    "rays_o": ray_b.rays_o, "rays_d": ray_b.rays_d,
+                    "meas": ray_b.depths[self.ray_sel[1]]})
+                valid = ~torch.isnan(nerf_b.depths[self.nerf_sel[1]])
+                p_occ, p_emp = nerf_density_probs(dens, hp, mean_density)
+                weight = valid[:, None].float().expand(-1, hp.M).reshape(-1)
+                _evidence_add_(delta, hp.grid_size, idxs.reshape(-1, 3), p_occ,
+                               p_emp, weight)
+                total = delta if total is None else total + delta
+            self.state = occ_grid_apply_delta(self.state, hp, total)
 
     @property
     def occ_bool(self) -> torch.Tensor:

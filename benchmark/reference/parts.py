@@ -6,7 +6,9 @@ reference lacks brings it as a new file, and nothing here changes.
   configuration (:func:`encoder_name`), has ``Encoder(model, generator,
   device)``: it draws its leaves from the generator first, in the port's
   order, and has ``leaves``, their program ``names``, ``out_dim`` and
-  ``encode(leaves, x_unit) -> (N, out_dim)``;
+  ``encode(leaves, x_unit) -> (N, out_dim)``; the module function
+  ``shapes(model) -> (out_dim, [leaf shape, ...])`` gives the same sizes
+  without drawing a leaf (the roofline's counts, ``harness/roofline.py``);
 - ``benchmark/reference/grids/<grid_type>.py`` has ``Grid(cfg, dataset,
   scene, generator)``, which draws its initial state after the model's
   leaves, with ``due(step)``, ``update(density, step)`` (making its own

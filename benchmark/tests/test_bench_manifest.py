@@ -138,6 +138,10 @@ def test_a_reader_that_finds_nothing_returns_nothing():
 
 
 def test_configs_keep_the_published_widths():
+    """Each configuration keeps the sizes its own source publishes (its
+    file's ``published`` block; a key that ``reduced`` names is exempt),
+    and the two files of the published ETHZ run state, and run, its ten
+    widths and float32."""
     widths = ("hash_levels", "hash_features_per_level", "hash_log2_T",
               "hash_max_res", "xyz_net_width", "xyz_net_depth",
               "xyz_net_out_dim", "rgb_net_width", "rgb_net_depth", "grid_size")
@@ -146,9 +150,13 @@ def test_configs_keep_the_published_widths():
             "xyz_net_out_dim": 16, "rgb_net_width": 64, "rgb_net_depth": 2,
             "grid_size": 128}
     for c in MAN["configs"]:
-        model = mf.config_file(MAN, c["name"])["config"]["model"]
-        assert {k: model[k] for k in widths} == want
-        assert model["dtype"] == "float32"
+        conf = mf.config_file(MAN, c["name"])
+        assert conf["published"].get("model"), c["name"]
+        assert mf.published_departures(conf) == [], c["name"]
+        if c["name"] in ("virus_ethz_commonroom", "virus_rh2_livingroom"):
+            for model in (conf["config"]["model"], conf["published"]["model"]):
+                assert {k: model[k] for k in widths} == want
+                assert model["dtype"] == "float32"
 
 
 def test_manifest_is_plain_json():

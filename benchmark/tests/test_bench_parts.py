@@ -67,12 +67,15 @@ def test_a_new_grid_file_is_found_by_name(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("find,file", [
-    (lambda: parts.encoder(_cfg(encoder_type="triplane").model),
-     "benchmark/reference/encoders/triplane.py"),
-    (lambda: PlainNGP(_cfg(hash_variant="xor"), torch.Generator(), "cpu"),
-     "benchmark/reference/encoders/hash_xor.py"),
-    (lambda: parts.grid("ngp"), "benchmark/reference/grids/ngp.py")])
+    (lambda: parts.encoder(_cfg(encoder_type="no_such_encoder").model),
+     "benchmark/reference/encoders/no_such_encoder.py"),
+    (lambda: PlainNGP(_cfg(hash_variant="no_such_hash"), torch.Generator(), "cpu"),
+     "benchmark/reference/encoders/hash_no_such_hash.py"),
+    (lambda: parts.grid("no_such_grid"), "benchmark/reference/grids/no_such_grid.py")])
 def test_an_unknown_part_names_the_file_to_add(find, file):
+    """Names that no configuration brings, so that adding a real part
+    (``encoders/hash_xor.py``, ``encoders/triplane.py``, ``grids/ngp.py``)
+    leaves this test as it is."""
     with pytest.raises(ValueError, match=file):
         find()
 
