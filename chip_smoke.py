@@ -216,6 +216,16 @@ Phases, each printed as it finishes; any failure exits non-zero:
     (NaN for NaN); timed: E1 (events, and profiler device time), the plain
     walk, ``get_slice_scan`` (the scan before E1), a whole
     ``SliceScan.depths`` call and the set-up (warm), beside E1's byte
+    bound;
+29. the evaluator's nearest-neighbour search (E2, ``csrc/nn_search.cu``)
+    on the ETHZ room's scans at the benchmark cell's size (after 28): one
+    ``evaluate_depth`` of 16 test images (16 x ``res_angular`` scan rays)
+    records the three ``nn_metrics`` calls' query and reference points,
+    and on each E2's indices ``torch.equal`` and its distances bit for bit
+    ``nn_search_plain``'s (the JAX package's numpy search); timed: E2
+    (events, and profiler device time), the plain search, a whole
+    ``nn_metrics`` call on the card, and E2 at a LiDAR scan's width (16
+    images of 512 queries over 8,192 reference points), beside E2's
     bound.
 
 Launch counts are replay-aware (``ops.launch_counts``): a wrapper's count
@@ -224,7 +234,8 @@ what it holds at every replay.  On every path the renderer's marches on
 the card are counted, and each must have launched ``march_select`` once
 (no path launches the standalone lattice).  The depth evaluations on the
 card (``Evaluator.evaluate_depth``) are counted too, and each must have
-launched E1 once.  The line before the last is the card's name and
+launched E1 once; so are the ``nn_metrics`` calls that search on the card,
+and each must have launched E2 once.  The line before the last is the card's name and
 power limit (nvidia-smi); before it, one JSON line with the kernels'
 results.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.
@@ -997,6 +1008,7 @@ def kernel_wrappers():
     """The counted kernel wrappers by name, and the march counter (call
     once a process: it wraps the renderer's march)."""
     from virus_nerf_tpu_torch.ops.fused_adam import adam_update_leaves_
+    from virus_nerf_tpu_torch.ops.nn_search import nn_search
     from virus_nerf_tpu_torch.ops.ray_march import march_lattice, march_select
     from virus_nerf_tpu_torch.ops.segment_sum import (
         group_segment_sum_t_sorted,
@@ -1013,7 +1025,9 @@ def kernel_wrappers():
             "widen_slabs": widen_slabs_group,
             "march_select": march_select, "march_lattice": march_lattice,
             "trace_stamp": trace_stamp, "slice_scan": slice_scan,
-            "marches": count_marches(), "evaluations": count_evaluations()}
+            "nn_search": nn_search, "marches": count_marches(),
+            "evaluations": count_evaluations(),
+            "nn_metrics": count_nn_metrics()}
 
 
 def reset_counts(wrappers):
@@ -1422,6 +1436,142 @@ def check_slice_scan(name, trainer, card, n_origins: int = 16):
             "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
             "get_slice_scan_ms": numpy_ms, "depths_call_ms": call_ms,
             "setup_ms": setup_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+# ------------------------------- the nearest-neighbour search (E2, 29)
+def count_nn_metrics():
+    """Count the ``nn_metrics`` calls that search on the card: the
+    evaluator's ``metrics.nn_metrics`` wrapped in a counter (``.launches``,
+    read and reset with the kernel counts) of its calls given a CUDA
+    device.  Every path is held to one E2 launch (``nn_search``) a call."""
+    from virus_nerf_tpu_torch.evaluation import metrics
+    from virus_nerf_tpu_torch.ops.launch_counts import register
+
+    nn_metrics = metrics.nn_metrics
+
+    def counted(*args, device="cpu", **kwargs):
+        if torch.device(device).type == "cuda":
+            counted.launches += 1
+        return nn_metrics(*args, device=device, **kwargs)
+
+    counted.launches = 0
+    metrics.nn_metrics = counted
+    return register(counted)
+
+
+def check_nn_searches(paths):
+    """One E2 launch an ``nn_metrics`` call on the card, on every path,
+    and at least one such call on each path of :data:`EVALUATING`."""
+    found = {p: (c["nn_search"], c["nn_metrics"]) for p, c in paths.items()}
+    off = {p: v for p, v in found.items() if v[0] != v[1]}
+    idle = [p for p in EVALUATING if found[p][1] <= 0]
+    log(f"E2 launches and nn_metrics calls on the card a path: "
+        f"{ {p: v for p, v in found.items() if v != (0, 0)} }")
+    if off or idle:
+        fail(f"E2 launches != nn_metrics calls on {off}; none on {idle}")
+
+
+def check_nn_search(name, trainer, state, card, n_origins: int = 16):
+    """Phase 29 on a recorded room: E2 against its plain version bit for
+    bit on the three searches of one depth evaluation, and the times of
+    the module doc.  Returns the numbers."""
+    from virus_nerf_tpu_torch.evaluation import metrics
+    from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
+    from virus_nerf_tpu_torch.ops.nn_search import nn_search, nn_search_plain
+
+    dev = trainer.device
+    ev = Evaluator(trainer.cfg, trainer.test_dataset, trainer.scene,
+                   img_wh=trainer.img_wh, device=dev)
+    idxs = np.arange(n_origins) % ev.n_images
+    calls, nn_metrics = [], metrics.nn_metrics
+
+    def recorded(*args, **kwargs):
+        calls.append((args, kwargs))
+        return nn_metrics(*args, **kwargs)
+
+    with mock.patch.object(metrics, "nn_metrics", recorded):
+        ev.evaluate_depth(state.model, state.grid.occ_bool, idxs,
+                          sensors=("NeRF",))
+    if len(calls) != 3:
+        fail(f"{name} NND search: {len(calls)} nn_metrics calls, want 3")
+
+    def as_f32(x):
+        return torch.from_numpy(np.array(x, np.float32).reshape(-1, 2))
+
+    searches, same = [], True
+    for args, kwargs in calls:
+        pos, pos_ref, n = args[0], args[1], args[4]
+        p, r = as_f32(pos), as_f32(pos_ref)
+        p_dev, r_dev = p.to(dev), r.to(dev)
+        got = [t.cpu() for t in nn_search(p_dev, r_dev, n)]
+        tic = time.perf_counter()
+        want = nn_search_plain(p, r, n)
+        plain_ms = 1e3 * (time.perf_counter() - tic)
+        ok = (torch.equal(got[0], want[0])
+              and torch.equal(got[1].view(torch.int32),
+                              want[1].view(torch.int32)))
+        same &= ok
+        call_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            nn_metrics(*args, **dict(kwargs, device=dev))
+            call_ms.append(1e3 * (time.perf_counter() - tic))
+
+        def e2(p_dev=p_dev, r_dev=r_dev, n=n):
+            return nn_search(p_dev, r_dev, n)
+
+        k, m = p.shape[0] // n, r.shape[0] // n
+        searches.append({
+            "images": n, "queries": k, "references": m, "same": ok,
+            "found_share": float((want[0] >= 0).float().mean()),
+            "ms": time_turns([e2])[0], "device_ms": device_ms(e2, "nn_search"),
+            "plain_ms": plain_ms, "nn_metrics_call_ms": call_ms})
+    # a LiDAR scan's width: 8,192 reference points an image
+    gen = torch.Generator().manual_seed(29)
+    p_l = torch.rand(16 * 512, 2, generator=gen) * 10
+    r_l = torch.rand(16 * 8192, 2, generator=gen) * 10
+    pl_dev, rl_dev = p_l.to(dev), r_l.to(dev)
+    got_l = [t.cpu() for t in nn_search(pl_dev, rl_dev, 16)]
+    tic = time.perf_counter()
+    want_l = nn_search_plain(p_l, r_l, 16)
+    lidar_plain_ms = 1e3 * (time.perf_counter() - tic)
+    same_l = (torch.equal(got_l[0], want_l[0])
+              and torch.equal(got_l[1].view(torch.int32),
+                              want_l[1].view(torch.int32)))
+
+    def e2_lidar():
+        return nn_search(pl_dev, rl_dev, 16)
+
+    lidar_ms = time_turns([e2_lidar])[0]
+    lidar_dev_ms = device_ms(e2_lidar, "nn_search")
+    s0 = searches[0]
+    n, k, m = s0["images"], s0["queries"], s0["references"]
+    # the points in (8 B each) and the index and distance out; five float
+    # operations a pair
+    b_ms, b_by = bound_ms(8 * n * (k + m) + 8 * n * k, 5 * n * k * m)
+    log(f"{name} NND search (E2): {[(s['images'], s['queries'], s['references']) for s in searches]} "
+        f"(images, queries, references) a call; found "
+        f"{[round(s['found_share'], 4) for s in searches]}; equal to the "
+        f"plain search {[s['same'] for s in searches]}; E2 "
+        f"{[round(s['ms'], 4) for s in searches]} ms (device "
+        f"{[round(s['device_ms'], 4) for s in searches]}), bound {b_ms:.5f} ms "
+        f"({b_by}); plain {[round(s['plain_ms'], 1) for s in searches]} ms; "
+        f"nn_metrics on the card {[round(x, 2) for x in searches[0]['nn_metrics_call_ms']]} "
+        f"ms a call; LiDAR width (16 x 512 over 8,192) equal {same_l}, E2 "
+        f"{lidar_ms:.4f} ms (device {lidar_dev_ms:.4f}), plain "
+        f"{lidar_plain_ms:.1f} ms; on {card}")
+    if not (same and same_l):
+        fail(f"{name} NND search: E2's indices or distances differ from the "
+             f"plain search's")
+    if not all(0 < s["found_share"] for s in searches):
+        fail(f"{name} NND search: a search found no neighbour: not a room's scans")
+    return {"searches": searches, "ms": s0["ms"], "device_ms": s0["device_ms"],
+            "plain_ms": s0["plain_ms"], "library_ms": None, "max_abs_err": 0.0,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "lidar": {"images": 16, "queries": 512, "references": 8192,
+                      "same": same_l, "ms": lidar_ms, "device_ms": lidar_dev_ms,
+                      "plain_ms": lidar_plain_ms}}
 
 
 def launches_per_step(trainer, state, n_steps: int = 8):
@@ -3568,6 +3718,7 @@ def main() -> None:
         budget_ethz_launches, budget["ethz"] = eval_budget(
             "ETHZ", trainer, state, wrappers, card)
         e1 = {"ethz": check_slice_scan("ETHZ", trainer, card)}
+        e2 = check_nn_search("ETHZ", trainer, state, card)
         no_matplotlib_check(trainer, state, tmp)
         # the ETHZ room's Config() and training split, for phase 26
         ethz_case = (trainer.cfg, trainer.train_dataset, trainer.scene)
@@ -3659,6 +3810,7 @@ def main() -> None:
     if stamped:
         fail(f"stamps launched with the tracer off: {stamped}")
     check_gt_scans(paths)
+    check_nn_searches(paths)
     step_counts = {p: c for p, c in dict(
         paths, rh2=rh2_step_launches, pso=pso_step_launches).items()
         if p in steps}
@@ -3725,6 +3877,12 @@ def main() -> None:
         entry("slice_scan", "slice_scan", "slice_scan.cu", None,
               list(EVALUATING), e1["ethz"], rh2=e1["rh2"],
               numpy_counterpart="virus_nerf_tpu/data/scene.py:101"),
+        # the port's own kernel: the NND metrics' nearest-neighbour search,
+        # numpy on the host in the JAX package; one launch an nn_metrics
+        # call on the card
+        entry("nn_search", "nn_search", "nn_search.cu", None,
+              list(EVALUATING), e2,
+              numpy_counterpart="virus_nerf_tpu/evaluation/geometry.py:17"),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

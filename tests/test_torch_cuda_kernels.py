@@ -940,3 +940,118 @@ def test_slice_scan_launches_once_a_call(cuda_device):
     assert launches(slice_scan) == 3
     assert snap["count.evaluator.gt_scan_device"] == 3
     assert snap["span.evaluator.gt_scan.n"] == 3
+
+
+def _nn_bit_exact(got, want, nan_bits=True):
+    """E2's (indices, distances) against the plain search's: indices
+    equal, distances bit for bit (with ``nan_bits`` False, any NaN equal to
+    any NaN: a NaN the card computes from inf - inf has its own bits)."""
+    import nn_search_cases as C
+
+    idx, dist = (t.cpu() for t in got)
+    assert idx.dtype == torch.int32 and dist.dtype == torch.float32
+    assert torch.equal(idx, want[0])
+    if nan_bits:
+        assert torch.equal(dist.view(torch.int32), want[1].view(torch.int32))
+    else:
+        assert C.same_f32(dist.numpy(), want[1].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, m", [(512, 512), (512, 8229)])
+def test_nn_search_kernel_is_bit_exact(cuda_device, k, m):
+    # 16 room scans with planted exact ties, NaN rows, an image without a
+    # valid reference, and points whose distance an FMA-contracted d^2
+    # would change; at the evaluator's 512 x 512 and at a LiDAR scan's
+    # width (over 8 tiles of references, the last one ragged)
+    import nn_search_cases as C
+    from virus_nerf_tpu_torch.ops.nn_search import nn_search, nn_search_plain
+
+    pos, pos_ref, n = C.scans(4000000241 + m, n=16, k=k, m=m)
+    p, r = torch.from_numpy(pos), torch.from_numpy(pos_ref)
+    got = nn_search(p.to(cuda_device), r.to(cuda_device), n)
+    with np.errstate(invalid="ignore"):
+        want = nn_search_plain(p, r, n)
+    assert got[0].shape == (n, k) and got[0].is_cuda
+    assert 0.5 < float((want[0] >= 0).float().mean()) < 1.0
+    _nn_bit_exact(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["random", "float64_inputs", "nan_rows",
+                                  "empty_images", "duplicate_ties",
+                                  "mirror_ties", "fma", "lidar", "uss", "inf",
+                                  "n1_512", "n16_512"])
+def test_nn_search_kernel_on_the_cpu_cases(cuda_device, name):
+    import nn_search_cases as C
+    from virus_nerf_tpu_torch.ops.nn_search import nn_search, nn_search_plain
+
+    pos, pos_ref, n = C.case(name)
+    p = torch.from_numpy(np.array(pos, np.float32))
+    r = torch.from_numpy(np.array(pos_ref, np.float32))
+    got = nn_search(p.to(cuda_device), r.to(cuda_device), n)
+    with np.errstate(invalid="ignore"):
+        want = nn_search_plain(p, r, n)
+    _nn_bit_exact(got, want, nan_bits=name != "inf")
+
+
+@pytest.mark.cuda
+def test_evaluate_depth_on_card_searches_as_the_numpy_path(cuda_device,
+                                                           monkeypatch):
+    # the same call with the search forced onto the host: every metric
+    # and distance equal
+    from virus_nerf_tpu_torch.evaluation import metrics
+
+    evaluator, state = _card_evaluator(cuda_device)
+    idxs = np.array([0, 2, 3, 5])
+    renders = []
+    render = evaluator.render_batched
+
+    def render_once(*args, **kwargs):  # one render for both paths
+        if not renders:
+            renders.append(render(*args, **kwargs))
+        return renders[0]
+
+    monkeypatch.setattr(evaluator, "render_batched", render_once)
+    got = evaluator.evaluate_depth(state.model, state.grid.occ_bool, idxs,
+                                   sensors=("NeRF",))
+    nn_metrics = metrics.nn_metrics
+
+    def on_host(*args, device, **kwargs):
+        assert device == evaluator.device
+        return nn_metrics(*args, device="cpu", **kwargs)
+
+    monkeypatch.setattr(metrics, "nn_metrics", on_host)
+    want = evaluator.evaluate_depth(state.model, state.grid.occ_bool, idxs,
+                                    sensors=("NeRF",))
+    assert np.isfinite(want[0]["NeRF"]["nn_mean"]["zone3"])
+    assert set(got[0]["NeRF"]) == set(want[0]["NeRF"])
+    for key, value in want[0]["NeRF"].items():
+        if key.startswith("nn_dists"):
+            np.testing.assert_array_equal(got[0]["NeRF"][key], value)
+        else:
+            assert repr(got[0]["NeRF"][key]) == repr(value), key
+
+
+@pytest.mark.cuda
+def test_nn_search_launches_once_an_nn_metrics_call(cuda_device):
+    from virus_nerf_tpu_torch.ops.launch_counts import launches, reset
+    from virus_nerf_tpu_torch.ops.nn_search import nn_search
+    from virus_nerf_tpu_torch.utils import tracing
+
+    evaluator, state = _card_evaluator(cuda_device)
+    reset([nn_search])
+    tracing.enable()
+    tracing.reset()
+    try:
+        for idxs in ([0, 1], [2, 4, 5], [3]):
+            evaluator.evaluate_depth(state.model, state.grid.occ_bool,
+                                     np.array(idxs), sensors=("NeRF",))
+        snap = tracing.snapshot()
+    finally:
+        tracing.enable(False)
+        tracing.reset()
+    # three directions a sensor, one launch each
+    assert launches(nn_search) == 9
+    assert snap["count.evaluator.nnd_device"] == 9
+    assert snap["span.evaluator.nnd.n"] == 9

@@ -13,7 +13,11 @@ nearest-neighbour distances in three directions per sensor:
 The NeRF renders run on the card in fixed-size chunks (the last one padded)
 with zero march noise under ``torch.no_grad()``.  The GT scan's ray walk
 is ``ops/slice_scan.py``'s, bit for bit ``Scene.get_slice_scan``: on the
-card the kernel E1, on the CPU its plain version.  The rest is the JAX
+card the kernel E1, on the CPU its plain version.  The nearest-neighbour
+search of the NND metrics is ``ops/nn_search.py``'s, bit for bit the JAX
+package's numpy search: on the card the kernel E2, all of one
+``nn_metrics`` call's images in one launch, on the CPU the numpy search.
+The rest (the FoV masks, the projections, the NND statistics) is the JAX
 package's numpy code, on the host.  Where the JAX methods
 take the parameters (``params``), these take the model that holds them.
 ``evaluate(save_dir=...)`` writes ``metrics.csv`` and the colour renders
@@ -506,6 +510,7 @@ class Evaluator:
                         p, p_ref, dists, data_dict["GT"]["depths"], N,
                         ref_pos_is_gt=ref_is_gt, zones=zones,
                         inlier_threshold=ev.inlier_threshold,
+                        device=self.device,
                     )
                 res[f"nn_dists{suffix}"] = nn_dists
                 res[f"nn_mean{suffix}"] = mean

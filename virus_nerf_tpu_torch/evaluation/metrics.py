@@ -9,9 +9,13 @@ definitions and defaults torchmetrics uses — data_range=1, SSIM with an
 All depth metrics are zone-resolved: a zone is a [min, max] ground-truth
 depth interval in meters (reference: training/metrics.py:186-213).
 
-Copied unchanged from ``virus_nerf_tpu/evaluation/metrics.py``: the module
-is numpy only, but importing it from the JAX package runs
-``virus_nerf_tpu/__init__.py``, which imports jax.
+The port's copy of ``virus_nerf_tpu/evaluation/metrics.py`` (importing
+that module runs ``virus_nerf_tpu/__init__.py``, which imports jax), with
+one change: ``nn_metrics`` finds the nearest neighbours of all its images
+at once by ``ops/nn_search.py``, on the device it is given (the evaluator's:
+the kernel E2 on the card, the JAX package's numpy search on the CPU), with
+the same results bit for bit.  The statistics stay in float64 numpy on the
+host.
 """
 
 from __future__ import annotations
@@ -19,8 +23,9 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
-from virus_nerf_tpu_torch.evaluation.geometry import find_nearest_neighbour
+from virus_nerf_tpu_torch.ops.nn_search import nn_search
 
 Zones = Dict[str, Tuple[float, float]]
 
@@ -34,6 +39,7 @@ def nn_metrics(
     ref_pos_is_gt: bool,
     zones: Zones,
     inlier_threshold: float,
+    device="cpu",
 ):
     """Per-image nearest-neighbour distances between two 2-D scan point sets,
     with zone-resolved statistics (reference: training/metrics.py:113-213).
@@ -46,14 +52,14 @@ def nn_metrics(
         num_points: N images.
         ref_pos_is_gt: direction of the match — True measures *accuracy*
             (prediction -> GT), False measures *coverage* (GT -> prediction).
+        device: where the search runs (``ops/nn_search.py``): a CUDA
+            device launches E2, the CPU searches in numpy.
     Returns:
         nn_dists (N*K,), and dicts zone -> mean / median / inlier ratio /
         outlier-too-close ratio.
     """
     N = num_points
     K = pos.shape[0] // N
-    pos = pos.reshape(N, K, 2)
-    pos_ref = pos_ref.reshape(N, -1, 2)
     if ref_pos_is_gt:
         nn_depths = np.asarray(depths, np.float64).reshape(N, K)
         depths_gt_r = np.asarray(depths_gt, np.float64).reshape(N, -1)
@@ -63,17 +69,20 @@ def nn_metrics(
         nn_depths_gt = np.asarray(depths_gt, np.float64).reshape(N, K)
         nn_depths = np.full((N, K), np.nan)
 
-    nn_dists = np.zeros((N, K))
-    for i in range(N):
-        idxs, dists = find_nearest_neighbour(
-            pos[i], pos_ref[i], ignore_nan=True
-        )
-        nn_dists[i] = dists
-        valid = idxs >= 0
-        if ref_pos_is_gt:
-            nn_depths_gt[i, valid] = depths_gt_r[i, idxs[valid]]
-        else:
-            nn_depths[i, valid] = depths_r[i, idxs[valid]]
+    # float32 on the host, as find_nearest_neighbour casts
+    idxs, dists = nn_search(
+        torch.from_numpy(np.array(pos, np.float32).reshape(-1, 2)).to(device),
+        torch.from_numpy(np.array(pos_ref, np.float32).reshape(-1, 2)).to(device),
+        N,
+    )
+    idxs = idxs.cpu().numpy()
+    nn_dists = dists.cpu().numpy().astype(np.float64)
+    valid = idxs >= 0
+    rows = np.nonzero(valid)[0]
+    if ref_pos_is_gt:
+        nn_depths_gt[valid] = depths_gt_r[rows, idxs[valid]]
+    else:
+        nn_depths[valid] = depths_r[rows, idxs[valid]]
 
     nn_dists = nn_dists.reshape(-1)
     nn_depths = nn_depths.reshape(-1)

@@ -88,6 +88,8 @@ _SIGNATURES = {
     # cells, count, bits, words, rays, radii, m, res, cube_min, span, hit, n,
     # stream
     "vn_slice_scan": (_P, _I, _P, _I, _P, _P, _I, _I, _D, _D, _P, _I, _P),
+    # pos, k, ref, m, n, idx, dist, stream
+    "vn_nn_search": (_P, _I, _P, _I, _I, _P, _P, _P),
 }
 
 
