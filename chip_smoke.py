@@ -191,8 +191,7 @@ Phases, each printed as it finishes; any failure exits non-zero:
     scale-1.0 configurations: host launches (profiler), the port's kernel
     launches (replay-aware), device ms and host ms, the replay-aware
     counts of B2 and the march held once against the device kernels the
-    profiler saw; then ``python -m virus_nerf_tpu_torch.bench`` at 8 x 4
-    and at ``--scale 1.0`` (``kernels_ok`` true);
+    profiler saw;
 27. the tracer's phase stamps (``utils/tracing.py``, the one-thread
     ``csrc/trace_stamp.cu``): the bench configuration's chunk of 24 steps
     as CUDA graphs on two trainers from one seed (deterministic mode), the
@@ -211,12 +210,13 @@ Phases, each printed as it finishes; any failure exits non-zero:
     run's 800,000-point cloud (after 23) and the RH2 run's 400,000 (after
     its 23), at the run's ``res_map`` and height band, on the evaluator's
     scan rays from 16 test origins (16 x ``res_angular`` rays): the hit
-    cells ``torch.equal`` to ``slice_scan_plain``'s on the same cells,
-    band, rays and radii, and the depths equal to ``Scene.get_slice_scan``'s
+    cells of ``Scene.scan_depths`` on the card ``torch.equal`` to
+    ``slice_scan_plain``'s on the cells, band, rays and radii it handed E1,
+    and the depths equal to ``Scene.get_slice_scan``'s
     (NaN for NaN); timed: E1 (events, and profiler device time), the plain
-    walk, ``get_slice_scan`` (the scan before E1), a whole
-    ``SliceScan.depths`` call and the set-up (warm), beside E1's byte
-    bound;
+    walk, ``get_slice_scan`` (the same walk on the host), a whole
+    ``Scene.scan_depths`` call and the scene's set-up (warm), beside E1's
+    byte bound;
 29. the evaluator's nearest-neighbour search (E2, ``csrc/nn_search.cu``)
     on the ETHZ room's scans at the benchmark cell's size (after 28): one
     ``evaluate_depth`` of 16 test images (16 x ``res_angular`` scan rays)
@@ -995,9 +995,30 @@ def reference_step(dev, hash_variant: str, dtype: str = "float32",
 
 # ---------------------------------------------------------------- the paths
 def bench_config():
-    from virus_nerf_tpu_torch import bench
+    """``bench.py``'s configuration (:311-348: the reference's ETHZ camera
+    + USS + ToF budget at batch 4096, the VIRUS grid updated every 8 steps,
+    the 8-level x F=4 hash of 2^19 rows, a 28-sample-a-ray budget), run
+    for 48 steps."""
+    from virus_nerf_tpu_torch.configs.config import Config
 
-    cfg = bench.bench_config()  # bench.py:311-346
+    cfg = Config()
+    cfg.model.grid_type = "occ"
+    cfg.model.grid_size = 128
+    cfg.model.scale = 0.5
+    cfg.model.hash_levels = 8
+    cfg.model.hash_features_per_level = 4
+    cfg.model.hash_log2_T = 19
+    cfg.model.hash_max_res = 1024
+    cfg.training.batch_size = 4096
+    cfg.training.max_samples_per_ray = 128
+    cfg.training.march_candidates = 1024
+    cfg.training.sample_budget = 4096 * 28
+    cfg.training.sampling_strategy = {
+        "imgs": "all", "pixs": {"valid_uss": 0.4, "valid_tof": 0.4},
+    }
+    cfg.training.sensors = ["USS", "ToF"]
+    cfg.occ_grid.batch_size = 1024
+    cfg.occ_grid.update_interval = 8
     cfg.training.max_steps = 48
     cfg.training.max_time = 1e9  # the step count ends this run
     cfg.evaluation.eval_every_n_steps = 8  # metrics fetched every 8 steps
@@ -1358,16 +1379,15 @@ def check_gt_scans(paths):
 
 
 def check_slice_scan(name, trainer, card, n_origins: int = 16):
-    """Phase 28 on a recorded room: E1 against its plain version bit for
-    bit, the depths against ``Scene.get_slice_scan``, and the times of the
-    module doc.  Returns the numbers."""
+    """Phase 28 on a recorded room: the scene's walk on the card
+    (``Scene.scan_depths``, E1) against its plain version bit for bit, the
+    depths against ``Scene.get_slice_scan``, and the times of the module
+    doc.  Returns the numbers."""
+    from virus_nerf_tpu_torch.data import scene as scene_module
+    from virus_nerf_tpu_torch.data.scene import Scene
     from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
     from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays
-    from virus_nerf_tpu_torch.ops.slice_scan import (
-        SliceScan,
-        slice_scan,
-        slice_scan_plain,
-    )
+    from virus_nerf_tpu_torch.ops.slice_scan import slice_scan, slice_scan_plain
 
     cfg, scene, dev = trainer.cfg, trainer.scene, trainer.device
     res, tol = cfg.evaluation.res_map, cfg.evaluation.height_tolerance
@@ -1379,20 +1399,32 @@ def check_slice_scan(name, trainer, card, n_origins: int = 16):
     rays_o = np.array(rays_o, np.float64)
     setup_ms = []
     for _ in range(3):  # the first makes the card's first copies
+        fresh = Scene(scene.point_cloud, scene.xyz_min, scene.xyz_max)
         torch.cuda.synchronize()
         tic = time.perf_counter()
-        scan = SliceScan(scene, res, dev)
+        fresh.slice_scan_setup(res, dev)
         torch.cuda.synchronize()
         setup_ms.append(1e3 * (time.perf_counter() - tic))
-    band, rays = scan.inputs(rays_o, rays_d, tol)
-    rays_t = torch.from_numpy(rays).to(dev)
+    del fresh
+    walks = []  # the scene's walk: the inputs it hands to E1
+
+    def recorded(*args):
+        walks.append(args)
+        return slice_scan(*args)
+
+    scene_module.slice_scan = recorded
+    try:
+        depths, hits, _ = scene.scan_depths(res, rays_o, rays_d, tol,
+                                            device=dev)
+    finally:
+        scene_module.slice_scan = slice_scan
+    (cells, band, _, rays_t, radii), = walks
 
     def e1():
-        return slice_scan(scan.cells, band, res, rays_t, scan.radii)
+        return slice_scan(cells, band, res, rays_t, radii)
 
     got = e1().cpu()
-    plain_in = (scan.cells.cpu(), band, res, torch.from_numpy(rays),
-                scan.radii.cpu())
+    plain_in = (cells.cpu(), band, res, rays_t.cpu(), radii.cpu())
     tic = time.perf_counter()
     want = slice_scan_plain(*plain_in)
     plain_ms = 1e3 * (time.perf_counter() - tic)
@@ -1404,9 +1436,9 @@ def check_slice_scan(name, trainer, card, n_origins: int = 16):
     for _ in range(5):
         torch.cuda.synchronize()
         tic = time.perf_counter()
-        depths = scan.depths(rays_o, rays_d, tol)
+        scene.scan_depths(res, rays_o, rays_d, tol, device=dev)
         call_ms.append(1e3 * (time.perf_counter() - tic))
-    n, m = rays.shape[0], scan.radii.shape[0]
+    n, m = rays_t.shape[0], radii.shape[0]
     ms = time_turns([e1])[0]
     dev_ms = device_ms(e1, "slice_", per_call=2)  # the raster and the walk
     words = (res * res + 31) // 32
@@ -1415,23 +1447,23 @@ def check_slice_scan(name, trainer, card, n_origins: int = 16):
     n_bytes = 4 * (band[1] - band[0]) + 2 * 4 * words + 36 * n + 8 * m
     b_ms, b_by = bound_ms(n_bytes, 0)
     hit = got.numpy() >= 0
-    same, same_depths = torch.equal(got, want), np.array_equal(
-        depths, numpy_depths, equal_nan=True)
+    same = torch.equal(got, want) and np.array_equal(hits, want.numpy())
+    same_depths = np.array_equal(depths, numpy_depths, equal_nan=True)
     log(f"{name} GT slice scan (E1): {n} rays x {m} samples at res {res}, "
-        f"{band[1] - band[0]:,} of {scan.cells.shape[0]:,} points in the band, "
+        f"{band[1] - band[0]:,} of {cells.shape[0]:,} points in the band, "
         f"{hit.mean():.4f} of the rays hit; hits equal to the plain walk's "
         f"{same}, depths equal to get_slice_scan's {same_depths}; E1 {ms:.4f} "
         f"ms (device {dev_ms:.4f}), bound {b_ms:.4f} ms ({b_by}); plain walk "
-        f"{plain_ms:.1f} ms, get_slice_scan {numpy_ms:.1f} ms, SliceScan.depths "
+        f"{plain_ms:.1f} ms, get_slice_scan {numpy_ms:.1f} ms, Scene.scan_depths "
         f"{[round(x, 2) for x in call_ms]} ms a call, set-up "
         f"{[round(x, 1) for x in setup_ms]} ms; on {card}")
     if not (same and same_depths):
         fail(f"{name} GT slice scan: E1's hits or depths differ from the "
              f"plain version's")
-    if not 0 < band[1] - band[0] < scan.cells.shape[0] or not hit.any():
+    if not 0 < band[1] - band[0] < cells.shape[0] or not hit.any():
         fail(f"{name} GT slice scan: band {band}, no hit: not a room's scan")
     return {"rays": n, "samples": m, "res": res,
-            "points": int(scan.cells.shape[0]), "band_points": band[1] - band[0],
+            "points": int(cells.shape[0]), "band_points": band[1] - band[0],
             "hit_share": float(hit.mean()), "max_abs_err": 0.0, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
             "get_slice_scan_ms": numpy_ms, "depths_call_ms": call_ms,
@@ -3434,24 +3466,6 @@ def tracing_run(dev, wrappers, card, chunk=24):
             "host_ms_a_step": turns}
 
 
-def bench_runs(card):
-    """``python -m virus_nerf_tpu_torch.bench`` at 8 x 4 and at --scale
-    1.0, in this process: kernels_ok true, a positive rate."""
-    from virus_nerf_tpu_torch import bench
-
-    out = {}
-    for name, argv in (("8x4", []), ("scale 1.0", ["--scale", "1.0"])):
-        tic = time.perf_counter()
-        r = bench.main(argv)
-        log(f"bench {name}: {json.dumps(r)} in {time.perf_counter() - tic:.1f} "
-            f"s of command time; on {card}")
-        if r["kernels_ok"] is not True or not r["value"] > 0:
-            fail(f"bench {name}: {r}")
-        out[name] = r
-        torch.cuda.empty_cache()
-    return out
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         log("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -3766,14 +3780,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 26. the chunk as CUDA graphs: graph against eager bit for bit,
-    # then a step of each in turns, then the bench entry point
+    # then a step of each in turns
     graph_launches = {}
     for name, *case in graph_cases(dev, ethz_case):
         graph_launches[name] = graph_against_eager(name, *case, wrappers, dev)
     del ethz_case
     turns = {name: graph_turns(name, cfg, ds, scene, wrappers, dev, card)
              for name, cfg, ds, scene, *_ in graph_cases(dev, (None,) * 3)[:2]}
-    benches = bench_runs(card)
 
     # ---- 27. the tracer's phase stamps
     traced = tracing_run(dev, wrappers, card)
@@ -3837,7 +3850,7 @@ def main() -> None:
               "virus_nerf_tpu/ops/fused_adam.py:37", list(paths),
               adam[xor_table_n], bf16_params=adam_bf16,
               all_leaves=adam_leaves, all_leaves_bf16_table=adam_leaves_bf16,
-              triplane_leaves=adam_tri, graph_turns=turns, bench=benches,
+              triplane_leaves=adam_tri, graph_turns=turns,
               dp_graph={"times": dp_times, "turns": dp_turns},
               population_graphs={k: v for k, v in pop.items()
                                  if not k.endswith("_launches")}),

@@ -88,6 +88,9 @@ def _segment_case(name, dev):
         k, R = _one_row_keys(gen, dev), 524288
     elif name == "out_of_range":  # every key outside [0, n_rows)
         k, R = _out_of_range_keys(gen, dev, 4096), 4096
+    elif name == "windowed":  # bench.py's case: the second group in 900 rows
+        k = torch.cat([keys(1, 8192, 0, 2**14), keys(1, 8192, 1000, 1900)])
+        R = 2**14
     else:  # hashed group at the bench slice's shape
         k, R = keys(5, 114688, 0, 524288), 524288
     VF = {"hashed_group": 32, "one_row": 32, "out_of_range": 64}.get(name, 16)
@@ -110,7 +113,8 @@ def _row_tolerance(terms, keys, R):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["skewed", "padded_rows", "odd_blocks",
-                                  "hashed_group", "one_row", "out_of_range"])
+                                  "hashed_group", "one_row", "out_of_range",
+                                  "windowed"])
 def test_segment_sum_kernel_matches_plain(cuda_device, name):
     vals, keys, R = _segment_case(name, cuda_device)
     before = segment_sum_sorted.launches
@@ -195,15 +199,20 @@ def _rows_case(name, dev):
         k, R = keys(1, 7777, 0, 4096), 4920
     elif name == "odd_groups":
         k, R = keys(3, 1001, 0, 300), 300
+    elif name == "windowed":  # bench.py's case: the second group in 900 rows
+        k = torch.cat([keys(1, 8192, 0, 2**14), keys(1, 8192, 1000, 1900)])
+        R = 2**14
     else:  # the XOR path's hashed group
         k, R = keys(10, 917504, 0, 524288), 524288
-    vals = torch.randn((k.shape[0], k.shape[1], 2), generator=gen, device=dev)
+    width = 8 if name == "windowed" else 2
+    vals = torch.randn((k.shape[0], k.shape[1], width), generator=gen,
+                       device=dev)
     return vals, k.to(torch.int32).contiguous(), R
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["uniform", "skewed", "padded_rows",
-                                  "odd_groups", "hashed_group"])
+                                  "odd_groups", "hashed_group", "windowed"])
 def test_segment_sum_rows_kernel_matches_plain(cuda_device, name):
     vals, keys, R = _rows_case(name, cuda_device)
     before = group_segment_sum_t_sorted.launches
@@ -303,7 +312,7 @@ def test_xor_hash_encode_on_card_matches_cpu(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", ["uniform", "skewed", "padded_rows",
                                   "odd_groups", "hashed_group", "one_row",
-                                  "out_of_range"])
+                                  "out_of_range", "windowed"])
 def test_segment_sum_factors_kernel_matches_plain(cuda_device, name, dtype):
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(13)
@@ -342,17 +351,26 @@ def test_segment_sum_factors_kernel_rejects_unsupported_features(cuda_device):
         group_segment_sum_tsf_sorted(wgt, keys, 4, 3)
 
 
+# (rows a level, levels, first row, rows past the group, corner offsets)
+WIDEN_GROUPS = {
+    # a group of 10 levels of 2^16 rows at hashed-level corner offsets
+    "levels": (1 << 16, 10, 4920, 77,
+               [0, 1, 40503, 40504, 12437, 12438, 52940, 52941]),
+    # bench.py's widen-pack case (:224-262)
+    "pack": (2 * 8192, 2, 64, 16, [0, 1, 37, 38, 1369, 1370, 1406, 1407]),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("F", [1, 2, 4, 8])
-def test_widen_slabs_kernel_is_bit_exact(cuda_device, F, dtype):
-    # a group of 10 levels of 2^16 rows at hashed-level corner offsets
+@pytest.mark.parametrize("group", list(WIDEN_GROUPS))
+def test_widen_slabs_kernel_is_bit_exact(cuda_device, group, F, dtype):
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(14)
-    size, G, row0 = 1 << 16, 10, 4920
-    table = (torch.randn((row0 + G * size + 77, F), generator=gen,
+    size, G, row0, tail, offs = WIDEN_GROUPS[group]
+    table = (torch.randn((row0 + G * size + tail, F), generator=gen,
                          device=cuda_device) * 100).to(dtype)
-    offs = [0, 1, 40503, 40504, 12437, 12438, 52940, 52941]
     before = widen.widen_slabs_group.launches
     got = widen.widen_slabs_group(table, row0, size, G, offs)
     want = widen.widen_slabs_group_plain(table, row0, size, G, offs)
@@ -578,13 +596,20 @@ MARCH_LATTICES = {
 }
 
 
+# rays a march: the bench's S = 128, K = 1024 march at its 4096 rays, the
+# rest a ragged 777 (a partial warp)
+MARCH_RAYS = {(128, 1024): 4096}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S, K", [(256, 1024), (512, 1024), (24, 256), (300, 256)])
-@pytest.mark.parametrize("fill", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("S, K", [(256, 1024), (512, 1024), (24, 256), (300, 256),
+                                  (128, 1024)])
+@pytest.mark.parametrize("fill", [0.0, 0.25, 0.5, 1.0])
 @pytest.mark.parametrize("lattice, rows", list(MARCH_LATTICES))
 def test_march_select_kernel_is_bit_exact(cuda_device, lattice, rows, fill, S, K):
     scale, cascades, esf = MARCH_LATTICES[lattice, rows]
-    args = _march_case(S + K + rows, scale, rows, fill, 777, 128, cuda_device)
+    args = _march_case(S + K + rows, scale, rows, fill,
+                       MARCH_RAYS.get((S, K), 777), 128, cuda_device)
     kw = dict(cascades=cascades, grid_size=128, scale=scale,
               exp_step_factor=esf, max_samples=S, n_candidates=K,
               march_resolution=min(K, 1024))
@@ -817,30 +842,32 @@ def _slice_cases():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("room", ["ethz", "rh2"])
-def test_slice_scan_kernel_is_bit_exact(cuda_device, room):
+def test_slice_scan_kernel_is_bit_exact(cuda_device, room, monkeypatch):
+    from virus_nerf_tpu_torch.data import scene as scene_module
     from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays
-    from virus_nerf_tpu_torch.ops.slice_scan import (
-        SliceScan,
-        slice_scan,
-        slice_scan_plain,
-    )
+    from virus_nerf_tpu_torch.ops.slice_scan import slice_scan, slice_scan_plain
 
     scene, origins_w, tol = _slice_cases()[room]
     res = 512
     rays_o, rays_d = create_scan_rays(scene.w2c(origins_w), 512)
     assert rays_o.shape[0] == 8192
-    card = SliceScan(scene, res, cuda_device)
-    band, rays = card.inputs(np.array(rays_o, np.float64), rays_d, tol)
+    walks = []  # the scene's walk on the card: its inputs and hit cells
+
+    def recorded(*args):
+        walks.append((args, slice_scan(*args)))
+        return walks[-1][1]
+
+    monkeypatch.setattr(scene_module, "slice_scan", recorded)
+    depths, hits, _ = scene.scan_depths(res, rays_o, rays_d, tol,
+                                        device=cuda_device)
+    ((cells, band, _, rays, radii), got), = walks
     assert 0 < band[1] - band[0] < scene.point_cloud.shape[0]
-    got = slice_scan(card.cells, band, res,
-                     torch.from_numpy(rays).to(cuda_device), card.radii)
-    torch.cuda.synchronize()
-    want = slice_scan_plain(card.cells.cpu(), band, res,
-                            torch.from_numpy(rays), card.radii.cpu())
+    assert cells.is_cuda and rays.is_cuda and radii.is_cuda
+    want = slice_scan_plain(cells.cpu(), band, res, rays.cpu(), radii.cpu())
     assert got.dtype == torch.int32 and got.is_cuda
     assert torch.equal(got.cpu(), want)
+    assert np.array_equal(hits, want.numpy())
     assert float((want >= 0).float().mean()) > 0.9
-    depths = card.depths(rays_o, rays_d, tol)
     numpy_depths = scene.get_slice_scan(res, rays_o, rays_d, tol,
                                         rays_o_in_world_coord=False)[1]
     assert np.array_equal(depths, numpy_depths, equal_nan=True)
@@ -872,7 +899,6 @@ def _card_evaluator(cuda_device):
 def test_evaluate_depth_on_card_scans_as_the_numpy_path(cuda_device,
                                                          monkeypatch):
     from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays
-    from virus_nerf_tpu_torch.ops import slice_scan as slice_scan_cache
 
     evaluator, state = _card_evaluator(cuda_device)
     cfg, scene = evaluator.cfg, evaluator.scene
@@ -889,8 +915,8 @@ def test_evaluate_depth_on_card_scans_as_the_numpy_path(cuda_device,
     monkeypatch.setattr(evaluator, "render_batched", render_once)
     got = evaluator.evaluate_depth(state.model, state.grid.occ_bool, idxs,
                                    sensors=("NeRF",))
-    assert list(slice_scan_cache._SCANS[scene]) == [(ev.res_map,
-                                                     evaluator.device)]
+    # the evaluation's set-up, kept by the scene
+    assert list(scene._slice_scans) == [(ev.res_map, evaluator.device)]
 
     def numpy_gt(img_idxs):
         rays_o, rays_d = create_scan_rays(evaluator._scan_origins(img_idxs),
@@ -921,12 +947,11 @@ def test_evaluate_depth_on_card_scans_as_the_numpy_path(cuda_device,
 
 @pytest.mark.cuda
 def test_slice_scan_launches_once_a_call(cuda_device):
-    from virus_nerf_tpu_torch.ops.launch_counts import launches, reset
     from virus_nerf_tpu_torch.ops.slice_scan import slice_scan
     from virus_nerf_tpu_torch.utils import tracing
 
     evaluator, state = _card_evaluator(cuda_device)
-    reset([slice_scan])
+    before = slice_scan.launches
     tracing.enable()
     tracing.reset()
     try:
@@ -937,8 +962,7 @@ def test_slice_scan_launches_once_a_call(cuda_device):
     finally:
         tracing.enable(False)
         tracing.reset()
-    assert launches(slice_scan) == 3
-    assert snap["count.evaluator.gt_scan_device"] == 3
+    assert slice_scan.launches - before == 3
     assert snap["span.evaluator.gt_scan.n"] == 3
 
 
@@ -1035,12 +1059,11 @@ def test_evaluate_depth_on_card_searches_as_the_numpy_path(cuda_device,
 
 @pytest.mark.cuda
 def test_nn_search_launches_once_an_nn_metrics_call(cuda_device):
-    from virus_nerf_tpu_torch.ops.launch_counts import launches, reset
     from virus_nerf_tpu_torch.ops.nn_search import nn_search
     from virus_nerf_tpu_torch.utils import tracing
 
     evaluator, state = _card_evaluator(cuda_device)
-    reset([nn_search])
+    before = nn_search.launches
     tracing.enable()
     tracing.reset()
     try:
@@ -1052,6 +1075,5 @@ def test_nn_search_launches_once_an_nn_metrics_call(cuda_device):
         tracing.enable(False)
         tracing.reset()
     # three directions a sensor, one launch each
-    assert launches(nn_search) == 9
-    assert snap["count.evaluator.nnd_device"] == 9
+    assert nn_search.launches - before == 9
     assert snap["span.evaluator.nnd.n"] == 9

@@ -11,8 +11,7 @@ on either side, images with no valid query or reference, exact ties
 (duplicated and mirror-symmetric reference points), points whose distance
 an FMA-contracted d^2 would change, K != M (LiDAR- and USS-style packing),
 inf coordinates, and 1 and 16 images at 512 x 512.  And an evaluator on
-the CPU, which searches on the host, and the tracer's counter of the
-searches made on the card.
+the CPU, which searches on the host.
 """
 
 import numpy as np
@@ -133,27 +132,9 @@ def test_nn_search_checks_its_inputs():
     assert nn_search.launches == launches  # no launch on the CPU
 
 
-def test_snapshot_counts_the_searches_on_the_card():
-    # count.evaluator.nnd_device reads E2's launches since reset: none on
-    # the CPU, so no entry; an entry once launches were counted
-    tracing.enable()
-    try:
-        tracing.reset()
-        nn_search(torch.zeros(4, 2), torch.ones(4, 2), 2)
-        assert "count.evaluator.nnd_device" not in tracing.snapshot()
-        nn_search.launches += 3  # as three launches on a card would
-        assert tracing.snapshot()["count.evaluator.nnd_device"] == 3
-        tracing.reset()
-        assert "count.evaluator.nnd_device" not in tracing.snapshot()
-    finally:
-        nn_search.launches -= 3
-        tracing.enable(False)
-        tracing.reset()
-
-
 def test_cpu_evaluator_searches_on_the_host(monkeypatch):
-    # an evaluator on the CPU searches with the numpy path: no launch, no
-    # device counter, three nnd spans a sensor, and the metrics of the JAX
+    # an evaluator on the CPU searches with the numpy path: no launch,
+    # three nnd spans a sensor, and the metrics of the JAX
     # package's nn_metrics exactly
     ds, scene, info = make_synthetic_dataset(device="cpu", n_images=4,
                                              img_wh=(32, 24), n_gt_points=2000)
@@ -177,7 +158,6 @@ def test_cpu_evaluator_searches_on_the_host(monkeypatch):
     finally:
         tracing.enable(False)
         tracing.reset()
-    assert "count.evaluator.nnd_device" not in snap
     assert snap["span.evaluator.nnd.n"] == 3
     assert nn_search.launches == launches
 

@@ -1,10 +1,12 @@
 """E1, the evaluator's ground-truth slice scan (``csrc/slice_scan.cu``),
 emulated in numpy on its own scheme, against its plain version
-``slice_scan_plain``, ``Scene.get_slice_scan`` and the JAX package's
-``Scene.get_slice_scan`` (virus_nerf_tpu/data/scene.py:101), bit for bit.
+``slice_scan_plain``, and ``Scene.get_slice_scan`` against the JAX
+package's ``Scene.get_slice_scan`` (virus_nerf_tpu/data/scene.py:101), all
+three outputs bit for bit.
 
 The kernel cannot run without a card; this emulation follows it step for
-step on the host inputs ``SliceScan`` makes: the raster as 32-bit words
+step on the host inputs ``Scene.scan_depths`` hands to ``slice_scan``: the
+raster as 32-bit words
 with one OR a band point, then one warp a ray, the samples in chunks of 32
 (one lane each), every product and sum rounded on its own, the cell by
 ``rint`` (half to even) and a clamp, the chunk's ballot of the occupied
@@ -13,8 +15,10 @@ lanes and its lowest set bit as the first hit.
 Cases: rasters of 128 and 512 cells a side; origins whose samples lie on
 exact half-cell ties; origins in occupied cells (a hit at the first
 sample); rays that leave the cube without a hit; an empty height band; a
-cloud of 800,000 points.  And an evaluator on the CPU, which scans on the
-host with the plain version, and the cache that keeps a scene's set-up.
+cloud of 800,000 points; the angles from ``angular_range`` where no
+directions are given; origins in world coordinates.  And an evaluator on
+the CPU, which scans on the host with the plain version, and the set-up a
+scene keeps.
 """
 
 import numpy as np
@@ -23,14 +27,13 @@ import torch
 
 from virus_nerf_tpu.data.scene import Scene as JScene
 from virus_nerf_tpu_torch.configs.config import Config
+from virus_nerf_tpu_torch.data import scene as scene_module
 from virus_nerf_tpu_torch.data.scene import CUBE_MIN, Scene
 from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from virus_nerf_tpu_torch.evaluation.evaluator import Evaluator
 from virus_nerf_tpu_torch.evaluation.geometry import create_scan_rays
-from virus_nerf_tpu_torch.ops import slice_scan as ss
 from virus_nerf_tpu_torch.ops.slice_scan import (
     SPAN,
-    SliceScan,
     slice_scan,
     slice_scan_plain,
 )
@@ -43,6 +46,7 @@ WARP = 32
 ROOM_MIN = np.array([-3.0, -3.0, -0.4])  # ETHZ commonroom's bounds
 ROOM_MAX = np.array([15.0, 9.0, 1.2])
 TOL = 0.1
+CUBE = {"rays_o_in_world_coord": False}  # get_slice_scan's origins in cube units
 
 
 # ----------------------------------------------------------- the emulation
@@ -131,7 +135,7 @@ def case_room(res, n_points=40_000, seed=0):
     rng = np.random.default_rng(seed)
     scene = Scene(_room_cloud(rng, n_points), ROOM_MIN, ROOM_MAX)
     origins = scene.w2c(rng.uniform([0, 0, 0.2], [12, 6, 0.6], (4, 3)))
-    return scene, *create_scan_rays(origins, 128), res
+    return scene, *create_scan_rays(origins, 128), res, CUBE
 
 
 def case_ties(res):
@@ -153,7 +157,7 @@ def case_ties(res):
     scene = Scene(pts, ROOM_MIN, ROOM_MAX)
     rays_o = np.asarray(origins, np.float64)
     rays_d = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (len(origins), 1))
-    return scene, rays_o, rays_d, res
+    return scene, rays_o, rays_d, res, CUBE
 
 
 def case_origin_occupied(res):
@@ -166,7 +170,7 @@ def case_origin_occupied(res):
                           _points_at(scene, cells, res, float(scene.shift[2]))])
     scene = Scene(pts, ROOM_MIN, ROOM_MAX)
     origins = np.c_[scene.idx2c(cells, res), np.zeros(len(cells))]
-    return scene, *create_scan_rays(origins, 64), res
+    return scene, *create_scan_rays(origins, 64), res, CUBE
 
 
 def case_leave_the_cube(res):
@@ -175,18 +179,39 @@ def case_leave_the_cube(res):
     pts = np.c_[rng.uniform(10.0, 11.0, (500, 2)), rng.uniform(0.3, 0.5, 500)]
     scene = Scene(pts.astype(np.float32), ROOM_MIN, ROOM_MAX)
     origins = scene.w2c(np.array([[4.0, 3.0, 0.4], [5.0, 2.0, 0.4]]))
-    return scene, *create_scan_rays(origins, 128), res
+    return scene, *create_scan_rays(origins, 128), res, CUBE
 
 
 def case_empty_band(res):
     """Origins far above the cloud: no point in the band."""
     scene = Scene(_room_cloud(np.random.default_rng(4), 4000), ROOM_MIN, ROOM_MAX)
     origins = np.array([[0.0, 0.0, 0.45], [0.1, -0.05, 0.45]])
-    return scene, *create_scan_rays(origins, 64), res
+    return scene, *create_scan_rays(origins, 64), res, CUBE
 
 
 def case_cloud_800k(res):
     return case_room(res, n_points=800_000, seed=5)
+
+
+def case_no_directions(res, angular_range=None):
+    """No ``rays_d``: the angles are a linspace over ``angular_range`` (the
+    default's where None), one sweep across every origin's rays."""
+    scene, rays_o, _, res, kw = case_room(res, seed=6)
+    if angular_range is not None:
+        kw = dict(kw, angular_range=angular_range)
+    return scene, rays_o, None, res, kw
+
+
+def case_world_origins(res, directions=True):
+    """Origins in world coordinates (``rays_o_in_world_coord``, the
+    default), with directions or with the angles of ``angular_range``."""
+    rng = np.random.default_rng(7)
+    scene = Scene(_room_cloud(rng, 40_000), ROOM_MIN, ROOM_MAX)
+    rays_o, rays_d = create_scan_rays(
+        rng.uniform([0, 0, 0.2], [12, 6, 0.6], (4, 3)), 128)
+    if directions:
+        return scene, rays_o, rays_d, res, {}
+    return scene, rays_o, None, res, {"angular_range": (0.0, np.pi)}
 
 
 CASES = {
@@ -198,32 +223,41 @@ CASES = {
     "leave-the-cube": lambda: case_leave_the_cube(128),
     "empty-band": lambda: case_empty_band(128),
     "cloud-800k": lambda: case_cloud_800k(512),
+    "no-directions": lambda: case_no_directions(128),
+    "angular-range": lambda: case_no_directions(128, (-np.pi / 3, 2.0)),
+    "world-origins": lambda: case_world_origins(128),
+    "world-origins-no-directions-512": lambda: case_world_origins(512, False),
 }
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_e1_scheme_matches_get_slice_scan_and_jax(name):
-    scene, rays_o, rays_d, res = CASES[name]()
-    want = scene.get_slice_scan(res, rays_o, rays_d, TOL,
-                                rays_o_in_world_coord=False)[1]
+def test_e1_scheme_matches_get_slice_scan_and_jax(name, monkeypatch):
+    scene, rays_o, rays_d, res, kw = CASES[name]()
     j_scene = JScene(scene.point_cloud, scene.xyz_min, scene.xyz_max)
-    j_want = j_scene.get_slice_scan(res, rays_o, rays_d, TOL,
-                                    rays_o_in_world_coord=False)[1]
-    assert np.array_equal(want, j_want, equal_nan=True)
+    j_want = j_scene.get_slice_scan(res, rays_o, rays_d, TOL, **kw)
 
-    scan = SliceScan(scene, res, "cpu")
-    o64 = np.array(rays_o, np.float64)
-    band, rays = scan.inputs(o64, rays_d, TOL)
-    hit, first = emulate_e1(scan.cells.numpy(), band, res, rays,
-                            scan.radii.numpy())
-    plain = slice_scan_plain(scan.cells, band, res, torch.from_numpy(rays),
-                             scan.radii)
+    walks = []  # the scene's one walk: its inputs and the hit cells
+
+    def recorded(*args):  # on the CPU slice_scan is its plain version
+        walks.append((args, slice_scan_plain(*args)))
+        return walks[-1][1]
+
+    monkeypatch.setattr(scene_module, "slice_scan", recorded)
+    want = scene.get_slice_scan(res, rays_o, rays_d, TOL, **kw)
+    # the scan map, the depths and the angles: the JAX package's march's
+    assert len(want) == len(j_want) == 3
+    for a, b in zip(want, j_want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a, b, equal_nan=True)
+
+    ((cells, band, walk_res, rays, radii), plain), = walks
+    assert walk_res == res
+    rays = rays.numpy()
+    hit, first = emulate_e1(cells.numpy(), band, res, rays, radii.numpy())
     assert plain.dtype == torch.int32
     assert np.array_equal(plain.numpy(), hit)
-    # the depths from the hits, on the host, are get_slice_scan's
-    got = scan.depths(rays_o, rays_d, TOL)
+    got = want[1]
     assert got.dtype == np.float64
-    assert np.array_equal(got, want, equal_nan=True)
 
     # each case has what it is named for
     if name.startswith("ties"):
@@ -244,6 +278,12 @@ def test_e1_scheme_matches_get_slice_scan_and_jax(name):
         assert (hit >= 0).mean() > 0.9
     if name == "cloud-800k":
         assert scene.point_cloud.shape[0] == 800_000 and res == 512
+    if rays_d is None:  # the angles of angular_range
+        lo, hi = kw.get("angular_range", (-np.pi, np.pi))
+        assert np.array_equal(
+            want[2], np.linspace(lo, hi, len(rays_o), endpoint=False))
+    if kw.get("rays_o_in_world_coord", True):
+        assert np.abs(rays_o).max() > 1.0  # metres, not cube units
 
 
 def test_plain_scan_is_the_raster_of_the_band():
@@ -278,7 +318,7 @@ def test_slice_scan_rejects_bad_arguments():
     with pytest.raises(ValueError):
         slice_scan(cells, (0, 4), 0, rays, radii)
     with pytest.raises(ValueError):
-        SliceScan(Scene(xyz_min=ROOM_MIN, xyz_max=ROOM_MAX), 64, "cpu")
+        Scene(xyz_min=ROOM_MIN, xyz_max=ROOM_MAX).slice_scan_setup(64, "cpu")
 
 
 def _same(a, b):
@@ -295,8 +335,7 @@ def _same(a, b):
 
 def test_cpu_evaluator_scans_on_the_host():
     # an evaluator on the CPU walks the rays with the plain version: no
-    # launch, no device counter, and the metrics of Scene.get_slice_scan's
-    # GT scan exactly
+    # launch, and the metrics of Scene.get_slice_scan's GT scan exactly
     ds, scene, info = make_synthetic_dataset(device="cpu", n_images=4,
                                              img_wh=(32, 24), n_gt_points=2000)
     cfg = Config()
@@ -309,7 +348,7 @@ def test_cpu_evaluator_scans_on_the_host():
     state = Trainer(cfg, ds, scene=scene, device="cpu").init_state(0)
     evaluator = Evaluator(cfg, ds, scene, img_wh=info["img_wh"], device="cpu")
     idxs = np.arange(3)
-    launches = ss.slice_scan.launches
+    launches = slice_scan.launches
     tracing.enable()
     tracing.reset()
     try:
@@ -319,10 +358,8 @@ def test_cpu_evaluator_scans_on_the_host():
     finally:
         tracing.enable(False)
         tracing.reset()
-    assert "count.evaluator.gt_scan_device" not in snap
     assert snap["span.evaluator.gt_scan.n"] == 1
-    assert ss.slice_scan.launches == launches
-    assert list(ss._SCANS[scene]) == [(ev.res_map, torch.device("cpu"))]
+    assert slice_scan.launches == launches
 
     def numpy_gt(img_idxs):
         rays_o, rays_d = create_scan_rays(evaluator._scan_origins(img_idxs),
@@ -343,24 +380,32 @@ def test_cpu_evaluator_scans_on_the_host():
 
 def test_scans_are_kept_a_scene():
     # the evaluators of one scene share one set-up a raster size and
-    # device; a replaced cloud is set up anew; the entry goes with its scene
+    # device; a replaced cloud is set up anew; the set-up goes with its
+    # scene
     import gc
     import weakref
 
     rng = np.random.default_rng(3)
     scene = Scene(rng.uniform(ROOM_MIN, ROOM_MAX, (5000, 3)), ROOM_MIN,
                   ROOM_MAX)
-    a = ss.scene_slice_scan(scene, 64, "cpu")
-    assert ss.scene_slice_scan(scene, 64, torch.device("cpu")) is a
-    b = ss.scene_slice_scan(scene, 128, "cpu")
-    assert b is not a and b.res == 128
-    assert sorted(ss._SCANS[scene]) == [(64, torch.device("cpu")),
-                                        (128, torch.device("cpu"))]
+    a = scene.slice_scan_setup(64, "cpu")
+    assert scene.slice_scan_setup(64, torch.device("cpu")) is a
+    b = scene.slice_scan_setup(128, "cpu")
+    assert b is not a and scene.slice_scan_setup(128, "cpu") is b
+    assert scene.slice_scan_setup(64, "cpu") is a
+    assert a.cells.shape == b.cells.shape == (5000,)
+    assert int(b.cells.max()) >= 64 * 64  # its own raster's cells
+    # an evaluation reads the set-up it is given
+    rays_o, rays_d = create_scan_rays(np.zeros((1, 3)), 16)
+    scene.scan_depths(64, rays_o, rays_d)
+    assert scene.slice_scan_setup(64, "cpu") is a
     scene.point_cloud = rng.uniform(ROOM_MIN, ROOM_MAX, (3000, 3))
-    c = ss.scene_slice_scan(scene, 64, "cpu")
+    c = scene.slice_scan_setup(64, "cpu")
     assert c is not a and c.cloud is scene.point_cloud
-    assert c.cells.shape == (3000,) and c.scene is scene
+    assert c.cells.shape == (3000,)
+    assert scene.slice_scan_setup(64, "cpu") is c
     gone = weakref.ref(scene)
+    cells = weakref.ref(c.cells)
     del scene, a, b, c
     gc.collect()
-    assert gone() is None  # the cache held it weakly
+    assert gone() is None and cells() is None

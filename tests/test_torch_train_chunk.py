@@ -28,10 +28,7 @@ the CPU the same piece bodies run eagerly.  Here, on the CPU:
   and states bit for bit; the trainer's graph set holds one state and
   its generators (a state set in place to another seed keeps it);
 - the chunk refuses a configuration whose sample counts its float32
-  metrics cannot hold exactly;
-- the port's bench (``virus_nerf_tpu_torch.bench``) at a tiny size on the
-  CPU: its JSON line's keys, ``kernels_ok`` None off the card, and its
-  entry point refusing to run without a card.
+  metrics cannot hold exactly.
 """
 
 import gc
@@ -52,7 +49,7 @@ from test_torch_trainer_options import (
 )
 from virus_nerf_tpu.data import make_synthetic_dataset as j_make_dataset
 from virus_nerf_tpu.training import Trainer as JTrainer
-from virus_nerf_tpu_torch import bench, convert
+from virus_nerf_tpu_torch import convert
 from virus_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
 from virus_nerf_tpu_torch.training import trainer as trainer_module
 from virus_nerf_tpu_torch.training.trainer import Trainer, _state_tensors
@@ -352,43 +349,6 @@ def test_chunk_refuses_sample_counts_float32_cannot_hold(pdata):
     cfg.training.max_samples_per_ray = 1023
     tr = Trainer(cfg, pdata[0], scene=pdata[1], device="cpu")
     tr.make_train_chunk(8)
-
-
-def test_run_bench_tiny_on_cpu():
-    cfg = bench.bench_config()
-    # the protocol at a tiny width: 4 x F=2 of 2^12 rows, a 32^3 grid,
-    # 128 rays; one warm-up chunk of 8 and one timed
-    cfg.model.hash_levels, cfg.model.hash_features_per_level = 4, 2
-    cfg.model.hash_log2_T, cfg.model.hash_max_res, cfg.model.grid_size = 12, 64, 32
-    cfg.training.batch_size, cfg.training.sample_budget = 128, 128 * 28
-    cfg.occ_grid.batch_size = 64
-    out = bench.run_bench(cfg, warmup_steps=8, timed_chunks=1, device="cpu",
-                          chunk=8)
-    assert list(out) == ["metric", "value", "unit", "vs_baseline", "kernels_ok"]
-    assert out["metric"] == "train_rays_per_sec" and out["unit"] == "rays/s"
-    assert out["kernels_ok"] is None and out["value"] > 0
-    assert out["vs_baseline"] == round(
-        out["value"] / (500 * 4096 / 45.0), 3)
-
-
-def test_bench_config_is_bench_py_s(monkeypatch):
-    cfg = bench.bench_config()
-    m, t = cfg.model, cfg.training
-    assert (m.grid_type, m.grid_size, m.scale, m.hash_levels,
-            m.hash_features_per_level, m.hash_log2_T, m.hash_max_res) == (
-        "occ", 128, 0.5, 8, 4, 19, 1024)
-    assert (t.batch_size, t.max_samples_per_ray, t.march_candidates,
-            t.sample_budget, t.sensors) == (4096, 128, 1024, 4096 * 28,
-                                            ["USS", "ToF"])
-    assert (cfg.occ_grid.batch_size, cfg.occ_grid.update_interval) == (1024, 8)
-    assert (bench.CHUNK, bench.WARMUP_STEPS, bench.TIMED_CHUNKS) == (24, 288, 8)
-    wide = bench.bench_config(1.0, 16, 2)
-    assert (wide.model.scale, wide.model.hash_levels,
-            wide.model.hash_features_per_level) == (1.0, 16, 2)
-    # the entry point runs on the card alone
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        bench.main(["--scale", "0.5"])
 
 
 if __name__ == "__main__":

@@ -30,7 +30,7 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
 # images decoded in lockstep: for 320x240 files with libpng's filters, 11 ms
 # an image in groups of 32 against 25 ms one at a time on the host CPU of an
-# H100 machine (png_decode_time.py); the group's int16 work buffer is 26 MB
+# H100 machine, OpenCV-written files; the group's int16 work buffer is 26 MB
 GROUP = 32
 
 

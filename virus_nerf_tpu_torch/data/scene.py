@@ -7,19 +7,35 @@ datasets/scene_rh.py:42-60).  Used for evaluation (the mapping metrics run on
 2-D projections of the GT map) and for converting metric sensor parameters
 into cube units.
 
-Copied unchanged from ``virus_nerf_tpu/data/scene.py``: the module is
-numpy only, but importing it from the JAX package runs
-``virus_nerf_tpu/data/__init__.py``, which imports jax.
+A copy of ``virus_nerf_tpu/data/scene.py`` (importing that module runs
+``virus_nerf_tpu/data/__init__.py``, which imports jax), but for the GT
+slice scan: :meth:`Scene.scan_depths` walks the rays with
+``ops/slice_scan.py`` (the kernel E1 on a card, its plain version on the
+CPU) from a set-up the scene keeps a raster size and device, and
+:meth:`Scene.get_slice_scan` is that walk on the CPU, bit for bit the JAX
+package's dense-raster march.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
-CUBE_MIN, CUBE_MAX = -0.5, 0.5
+from virus_nerf_tpu_torch.ops.common import CUBE_MAX, CUBE_MIN
+from virus_nerf_tpu_torch.ops.slice_scan import slice_scan
+
 SCALE_MARGIN = 1.05
+
+
+class SliceScanSetup(NamedTuple):
+    """A scene's GT slice scan set-up at one raster size on one device."""
+
+    cloud: np.ndarray  # the point cloud it was made from
+    z: np.ndarray  # the heights, sorted (stable), in the cloud's dtype
+    cells: torch.Tensor  # (P,) int32 slice cell ix * res + iy of each, sorted
+    radii: torch.Tensor  # (M,) float64 sample distances along a ray
 
 
 class Scene:
@@ -47,6 +63,7 @@ class Scene:
         self.scale = (
             (self.xyz_max - self.xyz_min).max() * SCALE_MARGIN / (CUBE_MAX - CUBE_MIN)
         )
+        self._slice_scans: Dict[tuple, SliceScanSetup] = {}
 
     # ------------------------------------------------------------ transforms
     def w2c(self, pos, only_scale: bool = False):
@@ -102,6 +119,89 @@ class Scene:
         m[idx[:, 0], idx[:, 1]] = 1
         return m
 
+    def slice_scan_setup(self, res: int, device="cpu") -> SliceScanSetup:
+        """The GT slice scan's set-up at raster size ``res`` on ``device``:
+        each cloud point's slice cell (``w2idx`` of its x, y, which no
+        height band changes), the points sorted by height, and the sample
+        distances.  Made at the first call and again once ``point_cloud``
+        was replaced; the scene keeps it, so the evaluators of one scene
+        share it."""
+        if self.point_cloud is None:
+            raise ValueError("scene has no point cloud")
+        res, device = int(res), torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        setup = self._slice_scans.get((res, device))
+        if setup is None or setup.cloud is not self.point_cloud:
+            pts = self.point_cloud[:, :3]
+            order = np.argsort(pts[:, 2], kind="stable")
+            ij = self.w2idx(pts[order, :2], res)
+            cells = (ij[:, 0] * res + ij[:, 1]).astype(np.int32)
+            m = int(np.ceil(np.sqrt(2.0 * res**2)))
+            radii = np.linspace(0.0, CUBE_MAX - CUBE_MIN, m)
+            setup = self._slice_scans[res, device] = SliceScanSetup(
+                self.point_cloud, pts[order, 2],
+                torch.from_numpy(cells).to(device),
+                torch.from_numpy(radii).to(device))
+        return setup
+
+    def scan_depths(
+        self,
+        res: int,
+        rays_o: np.ndarray,
+        rays_d: Optional[np.ndarray] = None,
+        height_tolerance: float = 0.1,
+        angular_range: Tuple[float, float] = (-np.pi, np.pi),
+        device="cpu",
+    ):
+        """The simulated 2-D LiDAR of :meth:`get_slice_scan` with ``rays_o``
+        in cube coordinates, the rays walked on ``device`` (E1 on a card).
+
+        On the host: the height band (one range of the set-up's sorted
+        heights, the points ``get_slice_map`` selects), the angles, the
+        (N, 4) rays (origin x, y, then the cosine and sine of the angle)
+        and the depths from the hit cells; ``slice_scan`` finds each ray's
+        first occupied cell.
+
+        Returns (depths (N,) cube units, NaN where a ray hits nothing;
+        hits (N,) int32 cells ix * res + iy, -1 where none; angles (N,)).
+        """
+        res = int(res)
+        rays_o = np.array(rays_o, dtype=np.float64)
+        setup = self.slice_scan_setup(res, device)
+        n = rays_o.shape[0]
+        if rays_d is None:
+            angles = np.linspace(
+                angular_range[0], angular_range[1], n, endpoint=False
+            )
+        else:
+            angles = np.arctan2(rays_d[:, 1], rays_d[:, 0])
+
+        height_mean = float(np.mean(rays_o[:, 2]))
+        height = self.c2w(np.array([[0.0, 0.0, height_mean]]))[0, 2]
+        inside = (setup.z >= height - height_tolerance) & (
+            setup.z <= height + height_tolerance
+        )
+        lo = int(np.argmax(inside))
+        band = (lo, lo + int(np.count_nonzero(inside)))
+        rays = np.empty((n, 4))
+        rays[:, :2] = rays_o[:, :2]
+        rays[:, 2] = np.cos(angles)
+        rays[:, 3] = np.sin(angles)
+        hits = slice_scan(setup.cells, band, res,
+                          torch.from_numpy(rays).to(setup.cells.device),
+                          setup.radii).cpu().numpy()
+
+        hit_rays = np.flatnonzero(hits >= 0)
+        closest_idx = np.stack(
+            [hits[hit_rays] // res, hits[hit_rays] % res], axis=1
+        )
+        depths = np.full(n, np.nan)
+        depths[hit_rays] = np.linalg.norm(
+            self.idx2c(closest_idx, res) - rays_o[hit_rays, :2], axis=1
+        )
+        return depths, hits, angles
+
     def get_slice_scan(
         self,
         res: int,
@@ -113,50 +213,19 @@ class Scene:
     ):
         """Simulated horizontal 2-D LiDAR on the GT slice raster: march each
         planar ray over the raster, first occupied cell wins
-        (reference: scene_base.py:86-148).
+        (reference: scene_base.py:86-148); :meth:`scan_depths` on the CPU.
 
         Returns (scan_map (res,res), scan_depth (N,) cube units, angles (N,)).
         """
         rays_o = np.array(rays_o, dtype=np.float64)
         if rays_o_in_world_coord:
             rays_o = self.w2c(rays_o)
-
-        n = rays_o.shape[0]
-        if rays_d is None:
-            angles = np.linspace(
-                angular_range[0], angular_range[1], n, endpoint=False
-            )
-        else:
-            angles = np.arctan2(rays_d[:, 1], rays_d[:, 0])
-
-        height_mean = float(np.mean(rays_o[:, 2]))
-        slice_map = self.get_slice_map(
-            height_mean, res, height_tolerance, height_in_world_coord=False
+        scan_depth, hits, angles = self.scan_depths(
+            res, rays_o, rays_d, height_tolerance, angular_range
         )
-
-        # sample points along every ray across the whole cube diagonal
-        m = int(np.ceil(np.sqrt(2.0 * res**2)))
-        r = np.linspace(0.0, CUBE_MAX - CUBE_MIN, m)  # (M,)
-        px = rays_o[:, None, 0] + r[None, :] * np.cos(angles)[:, None]
-        py = rays_o[:, None, 1] + r[None, :] * np.sin(angles)[:, None]
-        pts = np.stack([px, py], axis=-1).reshape(-1, 2)  # (N*M, 2)
-        idx = self.c2idx(pts, res).reshape(n, m, 2)
-        occ = slice_map[idx[..., 0], idx[..., 1]]  # (N, M)
-
-        # first occupied sample per ray
-        hit = occ > 0
-        first = np.argmax(hit, axis=1)
-        has_hit = hit[np.arange(n), first]
-
+        hits = hits[hits >= 0]
         scan_map = np.zeros((res, res))
-        scan_depth = np.full(n, np.nan)
-        hit_rays = np.where(has_hit)[0]
-        closest_idx = idx[hit_rays, first[hit_rays]]  # (H, 2)
-        scan_map[closest_idx[:, 0], closest_idx[:, 1]] = 1
-        closest_c = self.idx2c(closest_idx, res)
-        scan_depth[hit_rays] = np.linalg.norm(
-            closest_c - rays_o[hit_rays, :2], axis=1
-        )
+        scan_map[hits // res, hits % res] = 1
         return scan_map, scan_depth, angles
 
     # -------------------------------------------------------- 3D -> 2D rays

@@ -11,9 +11,10 @@ nearest-neighbour distances in three directions per sensor:
 - ``nn_inv_360``   full 360-degree GT -> prediction (total coverage).
 
 The NeRF renders run on the card in fixed-size chunks (the last one padded)
-with zero march noise under ``torch.no_grad()``.  The GT scan's ray walk
-is ``ops/slice_scan.py``'s, bit for bit ``Scene.get_slice_scan``: on the
-card the kernel E1, on the CPU its plain version.  The nearest-neighbour
+with zero march noise under ``torch.no_grad()``.  The GT scan is
+``Scene.scan_depths``, bit for bit ``Scene.get_slice_scan``, its rays
+walked on the evaluator's device: on the card by the kernel E1, on the CPU
+by its plain version.  The nearest-neighbour
 search of the NND metrics is ``ops/nn_search.py``'s, bit for bit the JAX
 package's numpy search: on the card the kernel E2, all of one
 ``nn_metrics`` call's images in one launch, on the CPU the numpy search.
@@ -58,7 +59,6 @@ from virus_nerf_tpu_torch.evaluation.geometry import (
 )
 from virus_nerf_tpu_torch.models.ngp import NGPModel
 from virus_nerf_tpu_torch.models.renderer import render_rays
-from virus_nerf_tpu_torch.ops.slice_scan import scene_slice_scan
 from virus_nerf_tpu_torch.utils import tracing
 from virus_nerf_tpu_torch.utils.deployment import density_in_chunks
 from virus_nerf_tpu_torch.utils.helpers import require_matplotlib, turbo
@@ -312,12 +312,13 @@ class Evaluator:
     def _get_gt_data(self, img_idxs: np.ndarray):
         """GT 360-degree scan by ray-casting the GT slice raster
         (reference: training/trainer.py:534-571), the rays walked on the
-        evaluator's device (``ops/slice_scan.py``)."""
+        evaluator's device (``Scene.scan_depths``)."""
         ev = self.cfg.evaluation
         rays_o, rays_d = create_scan_rays(self._scan_origins(img_idxs),
                                           ev.res_angular)
-        depths_c = scene_slice_scan(self.scene, ev.res_map, self.device).depths(
-            rays_o, rays_d, ev.height_tolerance)
+        depths_c = self.scene.scan_depths(
+            ev.res_map, rays_o, rays_d, ev.height_tolerance,
+            device=self.device)[0]
         return (self.scene.c2w(rays_o), rays_d,
                 self.scene.c2w(depths_c, only_scale=True))
 

@@ -14,6 +14,8 @@ MAX_SAMPLES = 1024
 NEAR_DISTANCE = 0.01
 SQRT3 = 1.7320508075688772
 SQRT3_2 = SQRT3 * 2
+# the cube the scene is scaled into, in cube coordinates (data/scene.py)
+CUBE_MIN, CUBE_MAX = -0.5, 0.5
 
 
 class TruncExp(torch.autograd.Function):
