@@ -18,7 +18,7 @@ Phases, each printed as it finishes; any failure exits non-zero:
    segment sum (B4, bf16, F = 2) on 917,504 entries over 524,288 rows with
    700,000 on one row and on uniform keys, and B1, B3 and B4 with every key
    outside [0, n_rows) (all 0); ptxas's registers and spills of B1, B3 and
-   B4 are printed after the build, as are B2's and B5's;
+   B4 are printed after the build, as are B2's, B5's, L1's and H1's;
 3. the bench path: ``Trainer`` at the bench configuration (bench.py:311-348:
    synthetic scene 16 x 160x120, 4096 rays, 8 x F=4 additive hash levels of
    2^19 rows, 128^3 VIRUS grid updated every 8 steps, S=128, budget
@@ -226,7 +226,17 @@ Phases, each printed as it finishes; any failure exits non-zero:
     (events, and profiler device time), the plain search, a whole
     ``nn_metrics`` call on the card, and E2 at a LiDAR scan's width (16
     images of 512 queries over 8,192 reference points), beside E2's
-    bound.
+    bound;
+30. the hash encoder's ``corners`` forward (H1, ``csrc/hash_corners.cu``)
+    at the benchmark cells' sample counts (131,072 ETHZ, 1,048,576 RH2,
+    4,194,304 an evaluation chunk) on the 16 x 2 table of 2^19 rows: the
+    embedding, base rows and weights ``torch.equal`` to
+    ``hash_corners_plain``'s (the plain code on the card); timed: H1 with
+    and without the base rows and weights (events, and profiler device
+    time) and the plain forward (events, device time and launches),
+    beside H1's byte bound; at 100,000 samples, where cuBLAS's batched
+    GEMV combines in another order, base rows and weights bit for bit
+    and the embedding's largest gap in ulps.
 
 Launch counts are replay-aware (``ops.launch_counts``): a wrapper's count
 moves where it launches (at a capture, once), and each CUDA graph adds
@@ -235,7 +245,8 @@ the card are counted, and each must have launched ``march_select`` once
 (no path launches the standalone lattice).  The depth evaluations on the
 card (``Evaluator.evaluate_depth``) are counted too, and each must have
 launched E1 once; so are the ``nn_metrics`` calls that search on the card,
-and each must have launched E2 once.  The line before the last is the card's name and
+and each must have launched E2 once; so are the additive hash's
+``corners`` encodes on the card, and each must have launched H1 once.  The line before the last is the card's name and
 power limit (nvidia-smi); before it, one JSON line with the kernels'
 results.  The last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.
@@ -466,7 +477,8 @@ def check_out_of_range(dev, layout):
 
 def ptxas_report(lib_path, sources=("segment_sum.cu", "segment_sum_rows.cu",
                                     "segment_sum_factors.cu", "fused_adam.cu",
-                                    "widen_slabs.cu", "march.cu")):
+                                    "widen_slabs.cu", "march.cu",
+                                    "hash_corners.cu")):
     """Registers and spills of every kernel of ``sources``, from the
     ``-Xptxas -v`` report of the build."""
     from virus_nerf_tpu_torch.ops import _build
@@ -1029,6 +1041,7 @@ def kernel_wrappers():
     """The counted kernel wrappers by name, and the march counter (call
     once a process: it wraps the renderer's march)."""
     from virus_nerf_tpu_torch.ops.fused_adam import adam_update_leaves_
+    from virus_nerf_tpu_torch.ops.hash_corners import hash_corners
     from virus_nerf_tpu_torch.ops.nn_search import nn_search
     from virus_nerf_tpu_torch.ops.ray_march import march_lattice, march_select
     from virus_nerf_tpu_torch.ops.segment_sum import (
@@ -1048,7 +1061,8 @@ def kernel_wrappers():
             "trace_stamp": trace_stamp, "slice_scan": slice_scan,
             "nn_search": nn_search, "marches": count_marches(),
             "evaluations": count_evaluations(),
-            "nn_metrics": count_nn_metrics()}
+            "nn_metrics": count_nn_metrics(), "hash_corners": hash_corners,
+            "corner_encodes": count_corner_encodes()}
 
 
 def reset_counts(wrappers):
@@ -1604,6 +1618,138 @@ def check_nn_search(name, trainer, state, card, n_origins: int = 16):
             "lidar": {"images": 16, "queries": 512, "references": 8192,
                       "same": same_l, "ms": lidar_ms, "device_ms": lidar_dev_ms,
                       "plain_ms": lidar_plain_ms}}
+
+
+# -------------------------------------- the hash corners forward (H1, 30)
+# the paths whose model encodes by the additive hash's corners forward on
+# the card: each such encode launches H1
+CORNERS = ("bench", "scale1", "ngp", "ethz", "rh2", "pso", "dp",
+           "population", "eval_budget", "graph bench")
+
+
+def count_corner_encodes():
+    """Count the ``corners`` encodes on the card that H1 takes: the
+    model's ``hash_encode`` wrapped in a counter (``.launches``, read and
+    reset with the kernel counts) of its calls with ``forward="corners"``
+    on a card table.  Every path is held to one H1 launch
+    (``hash_corners``) such an encode."""
+    from virus_nerf_tpu_torch.models import ngp
+    from virus_nerf_tpu_torch.ops.launch_counts import register
+
+    encode = ngp.hash_encode
+
+    def counted(table, xyz, spec, consts=None, forward="corners",
+                backward="product"):
+        if forward == "corners" and table.is_cuda:
+            counted.launches += 1
+        return encode(table, xyz, spec, consts, forward=forward,
+                      backward=backward)
+
+    counted.launches = 0
+    ngp.hash_encode = counted
+    return register(counted)
+
+
+def check_corner_encodes(paths):
+    """One H1 launch a ``corners`` encode on the card, on every path, and
+    at least one such encode on each path of :data:`CORNERS`."""
+    found = {p: (c["hash_corners"], c["corner_encodes"])
+             for p, c in paths.items()}
+    off = {p: v for p, v in found.items() if v[0] != v[1]}
+    idle = [p for p in CORNERS if found[p][1] <= 0]
+    log(f"H1 launches and corners encodes on the card a path: "
+        f"{ {p: v for p, v in found.items() if v != (0, 0)} }")
+    if off or idle:
+        fail(f"H1 launches != corners encodes on {off}; none on {idle}")
+
+
+def check_hash_corners(dev, card):
+    """Phase 30: H1 against the plain ``corners`` forward bit for bit at
+    the cells' sample counts, and the times of the module doc.  Returns
+    the numbers."""
+    from virus_nerf_tpu_torch.ops.hash_corners import hash_corners
+    from virus_nerf_tpu_torch.ops.hash_encoder import (
+        HashGridSpec,
+        _SpecTensors,
+        h1_level_words,
+        hash_corners_plain,
+    )
+
+    spec = HashGridSpec.create(16, 2, 16.0, 1024.0, 2**19)
+    consts, words = _SpecTensors(spec, dev), h1_level_words(spec)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    table = torch.rand((spec.total_rows, 2), generator=gen, device=dev)
+    L, F = spec.levels, spec.feat_dim
+    shapes, same = {}, True
+    for name, n in (("ETHZ", 131072), ("RH2", 1048576),
+                    ("evaluation chunk", 4194304)):
+        xyz = torch.rand((n, 3), generator=gen, device=dev) * 1.06 - 0.03
+        got = hash_corners(table, xyz, *words)
+        want = hash_corners_plain(table, xyz, spec, consts)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        same &= ok
+        del got, want
+
+        def h1(xyz=xyz):
+            return hash_corners(table, xyz, *words)
+
+        def h1_free(xyz=xyz):
+            return hash_corners(table, xyz, *words, keep=False)
+
+        def plain(xyz=xyz):
+            return hash_corners_plain(table, xyz, spec, consts)
+
+        ms, free_ms, plain_ms = time_turns([h1, h1_free, plain], iters=5)
+        plain_dev_ms, plain_launches = device_total_ms(plain)
+        # positions and the table read once; the embedding, and with the
+        # gradient's outputs the base rows and weights, written once
+        read = 12 * n + 4 * spec.total_rows * F
+        b_ms, b_by = bound_ms(read + 4 * n * L * F + 8 * L * n + 32 * L * n, 0)
+        shapes[name] = {
+            "samples": n, "same": ok, "ms": ms,
+            "device_ms": device_ms(h1, "hash_corners_kernel", iters=5),
+            "no_grad_ms": free_ms,
+            "no_grad_device_ms": device_ms(h1_free, "hash_corners_kernel",
+                                           iters=5),
+            "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
+            "plain_launches": plain_launches, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "no_grad_bound_ms": bound_ms(read + 4 * n * L * F, 0)[0]}
+        del xyz
+        torch.cuda.empty_cache()
+    # a sample count at which cuBLAS's batched GEMV takes its one-kernel
+    # path, whose combine order H1 does not follow: base rows and weights
+    # still bit for bit, the embedding's largest gap in ulps
+    xyz = torch.rand((100000, 3), generator=gen, device=dev) * 1.06 - 0.03
+    got = hash_corners(table, xyz, *words)
+    want = hash_corners_plain(table, xyz, spec, consts)
+    ragged_same = all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    ragged_ulps = int((got[0].view(torch.int32).long()
+                       - want[0].view(torch.int32).long()).abs().max())
+    ragged_share = float((got[0] == want[0]).float().mean())
+    same &= ragged_same
+    del xyz, got, want
+    log(f"hash corners forward (H1) at 100,000 samples: base and weights "
+        f"equal {ragged_same}; embedding equal in {ragged_share:.6f} of its "
+        f"values, largest gap {ragged_ulps} ulps")
+    log(f"hash corners forward (H1) at 16 x 2, 2^19 rows: " + "; ".join(
+        f"{k} {v['samples']}: equal {v['same']}, H1 {v['ms']:.4f} ms (device "
+        f"{v['device_ms']:.4f}), without base and w {v['no_grad_ms']:.4f} "
+        f"(device {v['no_grad_device_ms']:.4f}), bound {v['bound_ms']:.4f} / "
+        f"{v['no_grad_bound_ms']:.4f}; plain {v['plain_ms']:.3f} ms (device "
+        f"{v['plain_device_ms']:.3f}, {v['plain_launches']:.0f} launches)"
+        for k, v in shapes.items()) + f"; on {card}")
+    if not same:
+        fail("hash corners forward: H1's embedding, base rows or weights "
+             "differ from the plain code's")
+    s0 = shapes["ETHZ"]
+    return {"shapes": shapes, "ragged_100000": {
+                "same_base_w": ragged_same, "out_equal_share": ragged_share,
+                "out_max_ulps": ragged_ulps},
+            "ms": s0["ms"], "device_ms": s0["device_ms"],
+            "plain_ms": s0["plain_ms"], "library_ms": None,
+            "max_abs_err": 0.0, "bound_ms": s0["bound_ms"],
+            "bound_by": s0["bound_by"]}
 
 
 def launches_per_step(trainer, state, n_steps: int = 8):
@@ -3790,6 +3936,10 @@ def main() -> None:
 
     # ---- 27. the tracer's phase stamps
     traced = tracing_run(dev, wrappers, card)
+    torch.cuda.empty_cache()
+
+    # ---- 30. the hash corners forward against its plain version
+    h1 = check_hash_corners(dev, card)
 
     # ms: the kernel's calls of one step at the keys (B1, B3, B4) or table
     # (B5) of its path; fused Adam on the 16 x 2 hash table; one march at
@@ -3824,6 +3974,7 @@ def main() -> None:
         fail(f"stamps launched with the tracer off: {stamped}")
     check_gt_scans(paths)
     check_nn_searches(paths)
+    check_corner_encodes(paths)
     step_counts = {p: c for p, c in dict(
         paths, rh2=rh2_step_launches, pso=pso_step_launches).items()
         if p in steps}
@@ -3896,6 +4047,11 @@ def main() -> None:
         entry("nn_search", "nn_search", "nn_search.cu", None,
               list(EVALUATING), e2,
               numpy_counterpart="virus_nerf_tpu/evaluation/geometry.py:17"),
+        # the port's own kernel: the additive hash's corners forward, the
+        # plain code's gather and cuBLAS GEMV before it; one launch a
+        # corners encode on the card
+        entry("hash_corners", "hash_corners", "hash_corners.cu", None,
+              list(CORNERS), h1),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,11 +40,13 @@ import torch
 from torch import nn
 
 from virus_nerf_tpu_torch.ops.common import trunc_exp
+from virus_nerf_tpu_torch.ops.hash_corners import check_layout
 from virus_nerf_tpu_torch.ops.hash_encoder import (
     BACKWARD_ROUTES,
     FORWARD_ROUTES,
     HashGridSpec,
     _SpecTensors,
+    h1_level_words,
     hash_encode,
     hash_encode_xor,
 )
@@ -136,6 +138,11 @@ class NGPModel(nn.Module):
                                                    device=device)
         if compute_dtype == "bfloat16":
             table = table.to(torch.bfloat16)
+        if (pos_encoder_type == "hash" and hash_variant == "additive"
+                and hash_forward == "corners" and table.is_cuda):
+            # the card's corners forward is H1: refuse what it cannot hold
+            check_layout(self.hash_spec.feat_dim,
+                         h1_level_words(self.hash_spec)[0])
         self.pos_table = nn.Parameter(table)
         xyz_dims = (
             [self.pos_out_dim] + [xyz_net_width] * xyz_net_depth

@@ -90,6 +90,9 @@ _SIGNATURES = {
     "vn_slice_scan": (_P, _I, _P, _I, _P, _P, _I, _I, _D, _D, _P, _I, _P),
     # pos, k, ref, m, n, idx, dist, stream
     "vn_nn_search": (_P, _I, _P, _I, _I, _P, _P, _P),
+    # xyz, n, table, is_bf16, F, levels, level_words, scales, out, base, w,
+    # stream
+    "vn_hash_corners": (_P, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 
 

@@ -13,7 +13,9 @@ direction of the additive encode has two routes, chosen by the arguments
 
 - forward ``"corners"``: base rows (``hash_base_rows``), a plain gather of
   the 8 corner rows ``offset + (base + corner_offsets[l, c]) mod size``,
-  the trilinear combine;
+  the trilinear combine; on the card all three in one launch of H1
+  (``ops/hash_corners.py``, ``csrc/hash_corners.cu``), which writes the
+  base rows and weights only when the table gradient needs them;
 - forward ``"slabs"``, the JAX package's own layout (hash_encoder.py
   :518-557): per same-size level group, a widened slab whose row r holds
   the 8 corner rows of base row r (``ops/widen.py``; bf16 groups built by
@@ -32,7 +34,8 @@ direction of the additive encode has two routes, chosen by the arguments
   the products itself; its F-major output is folded by
   ``_fold_wide_t_fmajor``.
 
-The two directions are independent: both forwards save (base, weights).
+The two directions are independent: both forwards save (base, weights)
+when the table needs a gradient.
 The table may be float32 or bf16 (the ``mixed``/``bfloat16`` compute modes);
 the gradient comes back in the table's dtype, as in JAX.  What the TPU
 needed beyond that is not ported: the packed-bf16 gather rows, the
@@ -59,12 +62,14 @@ the table gradient in place, cast to the table's dtype at the end.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from virus_nerf_tpu_torch.ops.hash_corners import hash_corners
 from virus_nerf_tpu_torch.ops.segment_sum import (
     group_segment_sum_t_sorted,
     group_segment_sum_tsf_sorted,
@@ -487,14 +492,52 @@ def _slab_gather_combine(table, base, w, spec: HashGridSpec,
     return out.reshape(n, spec.out_dim)
 
 
+@functools.lru_cache(maxsize=None)
+def h1_level_words(spec: HashGridSpec):
+    """The per-level constants H1 (``ops/hash_corners.py``) takes by value:
+    (L, 13) int64 (first row, size, stride_y, stride_z, the 8 corner
+    offsets, bf16 rounding) and (L,) float32 scales, as ``_SpecTensors``
+    rounds them."""
+    words = np.zeros((spec.levels, 13), np.int64)
+    words[:, 0] = spec.offsets
+    words[:, 1] = spec.sizes
+    words[:, 2] = spec.stride_y
+    words[:, 3] = spec.stride_z
+    words[:, 4:12] = spec.corner_offsets
+    words[bf16_rounded_levels(spec), 12] = 1
+    return words, np.asarray(spec.scales, np.float32)
+
+
+def hash_corners_plain(table, xyz, spec: HashGridSpec,
+                       consts: _SpecTensors = None):
+    """The plain ``corners`` forward on any device (the CPU's, and H1's
+    plain version): ``hash_base_rows``, then ``_corner_gather_combine``.
+    Returns (out, base, w)."""
+    c = consts if consts is not None else _SpecTensors(spec, xyz.device)
+    base, w = hash_base_rows(spec, xyz, c)
+    return _corner_gather_combine(table, base, w, spec, c), base, w
+
+
+def _encode_forward(table, xyz, spec: HashGridSpec, consts: _SpecTensors,
+                    forward: str, keep: bool):
+    """(out, base, w) by the ``forward`` route.  A ``corners`` forward on
+    the card is H1's one launch, which writes base and w only if ``keep``
+    and refuses a layout it does not hold (F outside {1, 2, 4, 8}, more
+    than 32 levels); on the CPU it is the plain code."""
+    if forward == "slabs":
+        base, w = hash_base_rows(spec, xyz, consts)
+        return _slab_gather_combine(table, base, w, spec, consts), base, w
+    if table.is_cuda:
+        return hash_corners(table, xyz.float().contiguous(),
+                            *h1_level_words(spec), keep=keep)
+    return hash_corners_plain(table, xyz, spec, consts)
+
+
 class _HashEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, xyz, spec, consts, forward, backward):
-        base, w = hash_base_rows(spec, xyz, consts)
-        if forward == "slabs":
-            out = _slab_gather_combine(table, base, w, spec, consts)
-        else:
-            out = _corner_gather_combine(table, base, w, spec, consts)
+        out, base, w = _encode_forward(table, xyz, spec, consts, forward,
+                                       keep=True)
         ctx.spec, ctx.backward, ctx.table_dtype = spec, backward, table.dtype
         ctx.save_for_backward(base, w)
         return out
@@ -511,7 +554,9 @@ def hash_encode(table, xyz, spec: HashGridSpec, consts: _SpecTensors = None,
     """Encode positions through the multiresolution hash grid.
 
     The gradient flows only into the table (sample positions come from the
-    non-differentiable ray march).
+    non-differentiable ray march).  Where the table needs none (under
+    ``no_grad``, or a table without ``requires_grad``) nothing keeps the
+    base rows and weights, and the card's H1 does not write them.
 
     Args:
         table: (total_rows, feat_dim) float32 or bf16 parameter table.
@@ -540,6 +585,9 @@ def hash_encode(table, xyz, spec: HashGridSpec, consts: _SpecTensors = None,
         )
     if consts is None:
         consts = _SpecTensors(spec, xyz.device)
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        # no table gradient: nothing keeps base and w
+        return _encode_forward(table, xyz, spec, consts, forward, keep=False)[0]
     return _HashEncode.apply(table, xyz, spec, consts, forward, backward)
 
 

@@ -121,7 +121,10 @@ def parse_args(argv=None):
                    choices=["float32", "mixed", "bfloat16"],
                    help="compute mode (model.dtype)")
     p.add_argument("--hash-levels", type=int, default=8)
-    p.add_argument("--hash-feats", type=int, default=4)
+    p.add_argument("--hash-feats", type=int, default=4,
+                   help="features a level: on the card 1, 2, 4 or 8 for "
+                   "the corners forward (H1's widths; the model refuses "
+                   "another at load), any on the CPU")
     p.add_argument("--hash-log2t", type=int, default=19)
     p.add_argument("--seed", type=int, default=21)
     p.add_argument("--save-renders", default=None, metavar="DIR",
